@@ -1,0 +1,250 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (superpoint_graph_tpu_torch) on
+one NVIDIA GPU.
+
+1. Header: torch / CUDA / nvcc versions, the card's name and power limit,
+   which optional file-I/O packages are present.
+2. Build: every CUDA kernel of the serving path, from this checkout.
+3. Quick kernel check: nn1 against its plain torch version on the card,
+   the room's 1,000,000 points as db and 65,536 queries.
+4. Slice: one synthetic S3DIS room of 1,000,000 raw points written in the
+   raw layout, then read_s3dis_format (nn1) -> partition_cloud (prune, kNN,
+   geof, exact cut pursuit on the host, SPG) -> superpoint batch -> the
+   flagship ECC-GRU SpgModel (random weights from a seed) -> labels spread
+   to the raw points (nn1). Stage times, counts and the kernel launches of
+   this run alone are printed.
+5. Checks: finite logits of the right shape, reader labels against the
+   generator's, the kernel against its plain version at the slice's two
+   full shapes (room x annotation points, voxels x raw points; both timed
+   with CUDA events), spread labels against the plain nn1's, and the
+   card's logits against the same model on the CPU. nn1 checks: squared
+   distances of the chosen points within rtol 1e-4 / atol 1e-6, >= 99.9%
+   equal indices.
+6. One JSON line with the kernel table, the card line, and last
+   {"ok": true, "device": {...}}.
+
+Exits non-zero on any failure, when no CUDA device is visible, or when run
+outside a checkout of the repository. Usage, from the repository root:
+    python3 chip_smoke.py
+"""
+from __future__ import annotations
+
+import copy
+import importlib.util
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+N_POINTS = 1_000_000
+N_CHECK = 65_536
+SEED = 0
+FLAGSHIP = dict(
+    model_config="gru_10_0,f_13",
+    ptn_widths=((64, 64, 128, 128, 256), (256, 64, 32)),
+    ptn_widths_stn=((64, 64, 128), (128, 64)),
+    ptn_nfeat=14, ptn_nfeat_stn=11,
+    fnet_widths=(13, 32, 128, 64), fnet_llbias=False, fnet_bnidx=2,
+)
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds per call of fn() on the card (CUDA events), after
+    one warm-up call."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare_nn1(db, q, label):
+    """nn1 kernel vs its plain version on the card; returns the check's
+    numbers (the plain call timed with CUDA events) and the plain version's
+    indices, and raises when the two disagree."""
+    import torch
+
+    from superpoint_graph_tpu_torch.ops.nn1 import nn1_cuda, nn1_plain
+
+    got = nn1_cuda(db, q)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = nn1_plain(db, q)
+    end.record()
+    torch.cuda.synchronize()
+    d_got = ((q - db[got]) ** 2).sum(1)
+    d_want = ((q - db[want]) ** 2).sum(1)
+    err = (d_got - d_want).abs()
+    ok = bool((err <= 1e-6 + 1e-4 * d_want.abs()).all())
+    agree = float((got == want).float().mean())
+    out = {"shape": f"db {len(db)} x queries {len(q)}",
+           "max_abs_err": float(err.max()), "index_agreement": agree,
+           "plain_ms": start.elapsed_time(end)}
+    print(f"[check] nn1 {label}: {json.dumps(out)}", flush=True)
+    if not ok or agree < 0.999:
+        raise AssertionError(f"nn1 kernel disagrees with its plain version "
+                             f"({label}): {out}")
+    return out, want
+
+
+def main() -> int:
+    if not (ROOT / "superpoint_graph_tpu_torch").is_dir():
+        print("chip_smoke.py must run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device visible: chip_smoke.py needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from superpoint_graph_tpu_torch.data.synthetic import write_s3dis_room
+    from superpoint_graph_tpu_torch.device import cuda_device
+    from superpoint_graph_tpu_torch.models.spgmodel import SpgModel
+    from superpoint_graph_tpu_torch.ops import _build
+    from superpoint_graph_tpu_torch.ops.nn1 import nn1, nn1_cuda
+    from superpoint_graph_tpu_torch.pipeline import PartitionConfig
+    from superpoint_graph_tpu_torch.room import label_room
+
+    dev = cuda_device(0)
+    # ---- 1. header
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    print(f"[header] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    print(f"[header] nvcc: {nvcc.splitlines()[-1]}")
+    print(f"[header] nvidia-smi: {smi}")
+    print("[header] optional packages: " + ", ".join(
+        f"{m}={'yes' if importlib.util.find_spec(m) else 'no'}"
+        for m in ("h5py", "pandas", "sklearn")), flush=True)
+
+    # ---- 2. build
+    lib, build_s = _build.build("nn1")
+    print(f"[build] nn1: {lib.relative_to(ROOT)} in {build_s:.2f} s", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        raw_path, want_labels, n_objects = write_s3dis_room(
+            Path(tmp) / "Area_1" / "room_0", np.random.RandomState(SEED),
+            N_POINTS)
+        print(f"[data] wrote {N_POINTS} raw points, {n_objects} annotation "
+              f"objects in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        # ---- 3. quick kernel check before the slice: the room's points as
+        # db, a query subset of exact copies and of perturbed points
+        from superpoint_graph_tpu_torch.data.provider import read_rows
+
+        room_xyz = read_rows(str(raw_path))[:, :3].astype(np.float32)
+        ann_xyz = np.concatenate([
+            read_rows(str(f))[:, :3]
+            for f in sorted(raw_path.parent.glob("Annotations/*.txt"))
+        ]).astype(np.float32)
+        room = torch.as_tensor(room_xyz, device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        pick = torch.randint(0, len(room), (N_CHECK,), device=dev, generator=g)
+        q = room[pick].clone()
+        q[N_CHECK // 2:] += 0.01 * torch.randn(
+            (N_CHECK - N_CHECK // 2, 3), device=dev, generator=g)
+        check_sub, _ = compare_nn1(room, q, "query subset")
+        ms_sub = cuda_ms(lambda: nn1_cuda(room, q), reps=5)
+        print(f"[time] nn1 {check_sub['shape']}: kernel {ms_sub:.3f} ms, "
+              f"plain {check_sub['plain_ms']:.3f} ms", flush=True)
+        del q
+
+        # ---- 4. the slice; only its own nn1 launches are counted
+        model = SpgModel(13, **FLAGSHIP)
+        model.reset_parameters(torch.Generator().manual_seed(SEED))
+        model = model.to(dev).eval()
+        cfg = PartitionConfig(cp_backend="exact", spg_adjacency="knn")
+        nn1.launches = 0
+        t0 = time.perf_counter()
+        r = label_room(str(raw_path), model, dev, cfg=cfg)
+        total = time.perf_counter() - t0
+        launches = nn1.launches
+    print(f"[slice] counts {json.dumps(r.counts)}")
+    for k, v in r.times.items():
+        note = ("  (host exact cut pursuit; the device solver is the next "
+                "port item)" if k == "partition_cloud.partition" else "")
+        print(f"[slice] {k}: {v:.3f} s{note}")
+    print(f"[slice] total {total:.3f} s; nn1 launches {launches}", flush=True)
+
+    # ---- 5. checks of the slice's output
+    n_sp = r.counts["superpoints"]
+    if launches < 2:
+        raise AssertionError(f"nn1 launched {launches} times on the main path")
+    if r.logits.shape != (n_sp, 13) or not np.isfinite(r.logits).all():
+        raise AssertionError(f"logits {r.logits.shape} not finite [n_sp, 13]")
+    if r.labels.shape != (N_POINTS,) or not 0 <= r.labels.min() <= r.labels.max() <= 12:
+        raise AssertionError("raw-point labels out of shape or range")
+    read_agree = float((r.raw_labels == want_labels).mean())
+    print(f"[check] reader labels equal to the generator's: {read_agree:.6f}")
+    if read_agree < 0.9999:
+        raise AssertionError("read_s3dis_format labels disagree with the room")
+    # the kernel against its plain version at the main path's two full
+    # shapes, on the inputs the path gave it: the room against its
+    # annotation points (reader), the voxels against the raw points (spread)
+    ann = torch.as_tensor(ann_xyz, device=dev)
+    check_read, _ = compare_nn1(room, ann, "read shape")
+    ms = cuda_ms(lambda: nn1_cuda(room, ann), reps=3)
+    print(f"[time] nn1 {check_read['shape']}: kernel {ms:.3f} ms, "
+          f"plain {check_read['plain_ms']:.3f} ms", flush=True)
+    del ann
+    vox = torch.as_tensor(r.partition.xyz, device=dev)
+    check_up, plain_idx = compare_nn1(vox, room, "interpolate shape")
+    pred_voxel = r.logits.argmax(1)[r.partition.in_component]
+    up_agree = float((pred_voxel[plain_idx.cpu().numpy()] == r.labels).mean())
+    print(f"[check] spread labels equal to the plain nn1's: {up_agree:.6f}")
+    if up_agree < 0.999:
+        raise AssertionError("interpolate_labels disagrees with plain nn1")
+    # the model on the card vs the same weights and batch on the CPU
+    # (full f32 both; 1e-3 covers summation order over 10 GRU rounds)
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_batch = type(r.batch)(**{
+        k: None if v is None else v.cpu() for k, v in vars(r.batch).items()})
+    with torch.no_grad():
+        cpu_logits = cpu_model(cpu_batch)[:n_sp].numpy()
+    model_err = float(np.abs(cpu_logits - r.logits).max())
+    print(f"[check] logits card vs CPU: max abs diff {model_err:.3e}")
+    if not np.allclose(r.logits, cpu_logits, atol=1e-3, rtol=1e-3):
+        raise AssertionError("model logits on the card disagree with the CPU")
+
+    # ---- 6. result lines
+    kernels = [{
+        "name": "nn1",
+        "route": "cuda",
+        "source": "superpoint_graph_tpu_torch/csrc/nn1.cu",
+        "replaces": "superpoint_graph_tpu/ops/nn1_pallas.py:27",
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in (check_sub, check_read, check_up)),
+        "ms": ms,
+        "plain_ms": check_read["plain_ms"],
+        "shape": check_read["shape"],
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(f"[card] {smi}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

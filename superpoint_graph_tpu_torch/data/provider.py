@@ -1,0 +1,79 @@
+"""S3DIS room reader and label up-sampling, through the nn1 kernel.
+
+Port of superpoint_graph_tpu/data/provider.py (`read_s3dis_format`,
+`interpolate_labels`; reference provider.py:185-217, 681-687). The text
+files are parsed with numpy instead of pandas. All annotation objects go
+through ONE nn1 call over their concatenated points; labels and object ids
+are then written slice by slice in file order, so a point claimed by two
+objects keeps the later one, as the JAX package's per-object loop does.
+"""
+from __future__ import annotations
+
+import glob
+import os
+
+import numpy as np
+import torch
+
+from superpoint_graph_tpu.data.provider import object_name_to_label
+
+from ..ops.nn1 import nn1
+
+
+def read_rows(path: str) -> np.ndarray:
+    """A whitespace-separated numeric text file as a float64 [rows, cols]."""
+    with open(path, "rb") as f:
+        first = f.readline()
+        rest = f.read()
+    n_cols = len(first.split())
+    vals = np.fromstring((first + rest).decode("ascii"), dtype=np.float64,
+                         sep=" ")
+    if n_cols == 0 or vals.size % n_cols:
+        raise ValueError(f"{path}: ragged rows ({vals.size} values, "
+                         f"{n_cols} columns in the first row)")
+    return vals.reshape(-1, n_cols)
+
+
+def _nn1_host(db: np.ndarray, queries: np.ndarray, device) -> np.ndarray:
+    return nn1(
+        torch.as_tensor(np.ascontiguousarray(db, np.float32), device=device),
+        torch.as_tensor(np.ascontiguousarray(queries, np.float32),
+                        device=device),
+    ).cpu().numpy()
+
+
+def read_s3dis_format(raw_path: str, label_out: bool = True, device="cpu"):
+    """Room txt + Annotations/*.txt objects re-associated by exact 1-NN on
+    `device`. Returns (xyz f32, rgb u8[, labels u8, objects u32])."""
+    room = read_rows(raw_path)
+    xyz = np.ascontiguousarray(room[:, 0:3], dtype=np.float32)
+    if room.shape[1] >= 6:
+        rgb = np.ascontiguousarray(room[:, 3:6], dtype=np.uint8)
+    else:
+        rgb = np.zeros((len(room), 3), dtype=np.uint8)
+    if not label_out:
+        return xyz, rgb
+    labels = np.zeros(len(room), dtype=np.uint8)
+    objects = np.zeros(len(room), dtype=np.uint32)
+    ann = sorted(glob.glob(os.path.dirname(raw_path) + "/Annotations/*.txt"))
+    if not ann:
+        return xyz, rgb, labels, objects
+    pts = [read_rows(f)[:, 0:3].astype(np.float32) for f in ann]
+    idx = _nn1_host(xyz, np.concatenate(pts), device)
+    start = 0
+    for i_object, (fobj, p) in enumerate(zip(ann, pts), start=1):
+        name = os.path.splitext(os.path.basename(fobj))[0]
+        sl = idx[start:start + len(p)]
+        labels[sl] = object_name_to_label(name.split("_")[0])
+        objects[sl] = i_object
+        start += len(p)
+    return xyz, rgb, labels, objects
+
+
+def interpolate_labels(xyz_up, xyz, labels, device="cpu"):
+    """Labels of the pruned cloud `xyz` spread to the full cloud `xyz_up` by
+    exact 1-NN on `device` (provider.py:681-687)."""
+    labels = np.asarray(labels)
+    if labels.ndim > 1 and labels.shape[1] > 1:
+        labels = np.argmax(labels, 1)
+    return labels[_nn1_host(xyz, xyz_up, device)].flatten()
