@@ -4,23 +4,36 @@ one NVIDIA GPU.
 
 1. Header: torch / CUDA / nvcc versions, the card's name and power limit,
    which optional file-I/O packages are present.
-2. Build: every CUDA kernel of the serving path, from this checkout.
+2. Build: every CUDA kernel of the serving path, from this checkout, with
+   ptxas's registers, shared memory and spills for each.
 3. Quick kernel check: nn1 against its plain torch version on the card,
    the room's 1,000,000 points as db and 65,536 queries.
-4. Slice: one synthetic S3DIS room of 1,000,000 raw points written in the
+4. Adversarial nn1 check (ops/nn1_cases.py): clouds at 1e3 m, near-ties
+   a few ulps apart at both scales, duplicated db points, queries equal to
+   db points, one repeated point; sizes off every multiple of the kernel's
+   tile, block and chunk; the split path at 65,536 queries and below, and
+   the unsplit path.
+5. Slice: one synthetic S3DIS room of 1,000,000 raw points written in the
    raw layout, then read_s3dis_format (nn1) -> partition_cloud (prune, kNN,
    geof, exact cut pursuit on the host, SPG) -> superpoint batch -> the
    flagship ECC-GRU SpgModel (random weights from a seed) -> labels spread
    to the raw points (nn1). Stage times, counts and the kernel launches of
    this run alone are printed.
-5. Checks: finite logits of the right shape, reader labels against the
+6. Checks: finite logits of the right shape, reader labels against the
    generator's, the kernel against its plain version at the slice's two
-   full shapes (room x annotation points, voxels x raw points; both timed
-   with CUDA events), spread labels against the plain nn1's, and the
-   card's logits against the same model on the CPU. nn1 checks: squared
-   distances of the chosen points within rtol 1e-4 / atol 1e-6, >= 99.9%
-   equal indices.
-6. One JSON line with the kernel table, the card line, and last
+   full shapes (room x annotation points, voxels x raw points), spread
+   labels against the plain nn1's, and the card's logits against the same
+   model on the CPU. Every nn1 check asks for the plain version's indices
+   exactly (agreement 1.0, squared-distance error 0).
+7. Timing at the three nn1 shapes, with CUDA events: the kernel (mean of 3
+   calls after a warm-up), the plain version (one call), one PyTorch call
+   of the same function (torch.cdist in direct mode + argmin, in query
+   chunks; at the check shape and the spread shape: at 1M x 1M it would
+   take ~21 minutes, beyond this script's time) and the bound (6 FP32
+   flops a pair, the 3 FMAs of the expanded form, at 67 TFLOP/s, or the
+   bytes at 3.35 TB/s if larger).
+8. One JSON line with the kernel table (top-level numbers at the read
+   shape, 1M x 1M; every shape under "shapes"), the card line, and last
    {"ok": true, "device": {...}}.
 
 Exits non-zero on any failure, when no CUDA device is visible, or when run
@@ -51,6 +64,14 @@ FLAGSHIP = dict(
     ptn_nfeat=14, ptn_nfeat_stn=11,
     fnet_widths=(13, 32, 128, 64), fnet_llbias=False, fnet_bnidx=2,
 )
+# (db points, queries) of the adversarial phase: split at 65,536 queries
+# and below, unsplit (a db of one 1024-point tile)
+ADVERSARIAL_SIZES = ((300_007, 65_536), (100_003, 10_007), (1_000, 100_003))
+FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
+HBM_BYTES = 3.35e12
+# the least arithmetic a pair needs: the expanded form's 3 FMAs (the
+# kernel's filter), not the direct form's 3 sub, 3 mul, 2 add
+FLOPS_PER_PAIR = 6
 
 
 def cuda_ms(fn, reps):
@@ -69,31 +90,64 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def nn1_bound_ms(m, n):
+    """(least milliseconds the card needs for nn1 at m db points x n
+    queries, what bounds it): the larger of the pairs' FP32 flops over the
+    FP32 peak and the bytes (both clouds read once, the int64 indices
+    written once) over the memory rate."""
+    ops_ms = FLOPS_PER_PAIR * m * n / FP32_FLOPS * 1e3
+    bytes_ms = (12 * (m + n) + 8 * n) / HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def timed(fn):
+    """(fn(), milliseconds it took on the card by CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def library_nn1_ms(db, q):
+    """Milliseconds of torch.cdist (direct mode) + argmin over all queries
+    in chunks of ~2**30 distances, CUDA events, after a one-chunk warm-up.
+    A yardstick only; the port never calls it."""
+    import torch
+
+    chunk = max(1, 2**30 // len(db))
+
+    def run(queries):
+        return [torch.cdist(queries[i:i + chunk], db,
+                            compute_mode="donot_use_mm_for_euclid_dist"
+                            ).argmin(1) for i in range(0, len(queries), chunk)]
+
+    run(q[:chunk])
+    return timed(lambda: run(q))[1]
+
+
 def compare_nn1(db, q, label):
     """nn1 kernel vs its plain version on the card; returns the check's
     numbers (the plain call timed with CUDA events) and the plain version's
-    indices, and raises when the two disagree."""
+    indices, and raises unless the indices are equal on every query."""
     import torch
 
     from superpoint_graph_tpu_torch.ops.nn1 import nn1_cuda, nn1_plain
 
     got = nn1_cuda(db, q)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = nn1_plain(db, q)
-    end.record()
-    torch.cuda.synchronize()
+    want, plain_ms = timed(lambda: nn1_plain(db, q))
     d_got = ((q - db[got]) ** 2).sum(1)
     d_want = ((q - db[want]) ** 2).sum(1)
-    err = (d_got - d_want).abs()
-    ok = bool((err <= 1e-6 + 1e-4 * d_want.abs()).all())
-    agree = float((got == want).float().mean())
     out = {"shape": f"db {len(db)} x queries {len(q)}",
-           "max_abs_err": float(err.max()), "index_agreement": agree,
-           "plain_ms": start.elapsed_time(end)}
+           "max_abs_err": float((d_got - d_want).abs().max()),
+           "index_agreement": float((got == want).double().mean()),
+           "plain_ms": plain_ms}
     print(f"[check] nn1 {label}: {json.dumps(out)}", flush=True)
-    if not ok or agree < 0.999:
+    if not torch.equal(got, want):
         raise AssertionError(f"nn1 kernel disagrees with its plain version "
                              f"({label}): {out}")
     return out, want
@@ -115,7 +169,8 @@ def main() -> int:
     from superpoint_graph_tpu_torch.device import cuda_device
     from superpoint_graph_tpu_torch.models.spgmodel import SpgModel
     from superpoint_graph_tpu_torch.ops import _build
-    from superpoint_graph_tpu_torch.ops.nn1 import nn1, nn1_cuda
+    from superpoint_graph_tpu_torch.ops.nn1 import nn1, nn1_cuda, nn1_plan
+    from superpoint_graph_tpu_torch.ops.nn1_cases import nn1_cases
     from superpoint_graph_tpu_torch.pipeline import PartitionConfig
     from superpoint_graph_tpu_torch.room import label_room
 
@@ -136,8 +191,11 @@ def main() -> int:
         for m in ("h5py", "pandas", "sklearn")), flush=True)
 
     # ---- 2. build
-    lib, build_s = _build.build("nn1")
-    print(f"[build] nn1: {lib.relative_to(ROOT)} in {build_s:.2f} s", flush=True)
+    lib, build_s, ptxas = _build.build("nn1")
+    print(f"[build] nn1: {lib.relative_to(ROOT)} in {build_s:.2f} s")
+    for line in ptxas.splitlines():
+        print(f"[build] ptxas: {line}")
+    sys.stdout.flush()
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -159,16 +217,23 @@ def main() -> int:
         room = torch.as_tensor(room_xyz, device=dev)
         g = torch.Generator(device=dev).manual_seed(SEED)
         pick = torch.randint(0, len(room), (N_CHECK,), device=dev, generator=g)
-        q = room[pick].clone()
-        q[N_CHECK // 2:] += 0.01 * torch.randn(
+        q_sub = room[pick].clone()
+        q_sub[N_CHECK // 2:] += 0.01 * torch.randn(
             (N_CHECK - N_CHECK // 2, 3), device=dev, generator=g)
-        check_sub, _ = compare_nn1(room, q, "query subset")
-        ms_sub = cuda_ms(lambda: nn1_cuda(room, q), reps=5)
-        print(f"[time] nn1 {check_sub['shape']}: kernel {ms_sub:.3f} ms, "
-              f"plain {check_sub['plain_ms']:.3f} ms", flush=True)
-        del q
+        check_sub, _ = compare_nn1(room, q_sub, "query subset")
 
-        # ---- 4. the slice; only its own nn1 launches are counted
+        # ---- 4. adversarial nn1 check, exact indices at every size
+        checks = [check_sub]
+        for n_db, n_q in ADVERSARIAL_SIZES:
+            cases = nn1_cases(SEED, n_db, n_q)
+            for name, (a_db, a_q) in cases.items():
+                a_db = torch.as_tensor(a_db, device=dev)
+                a_q = torch.as_tensor(a_q, device=dev)
+                splits, _, _ = nn1_plan(len(a_q), len(a_db))
+                checks.append(compare_nn1(
+                    a_db, a_q, f"adversarial {name} ({splits} splits)")[0])
+
+        # ---- 5. the slice; only its own nn1 launches are counted
         model = SpgModel(13, **FLAGSHIP)
         model.reset_parameters(torch.Generator().manual_seed(SEED))
         model = model.to(dev).eval()
@@ -185,7 +250,7 @@ def main() -> int:
         print(f"[slice] {k}: {v:.3f} s{note}")
     print(f"[slice] total {total:.3f} s; nn1 launches {launches}", flush=True)
 
-    # ---- 5. checks of the slice's output
+    # ---- 6. checks of the slice's output
     n_sp = r.counts["superpoints"]
     if launches < 2:
         raise AssertionError(f"nn1 launched {launches} times on the main path")
@@ -202,12 +267,9 @@ def main() -> int:
     # annotation points (reader), the voxels against the raw points (spread)
     ann = torch.as_tensor(ann_xyz, device=dev)
     check_read, _ = compare_nn1(room, ann, "read shape")
-    ms = cuda_ms(lambda: nn1_cuda(room, ann), reps=3)
-    print(f"[time] nn1 {check_read['shape']}: kernel {ms:.3f} ms, "
-          f"plain {check_read['plain_ms']:.3f} ms", flush=True)
-    del ann
     vox = torch.as_tensor(r.partition.xyz, device=dev)
     check_up, plain_idx = compare_nn1(vox, room, "interpolate shape")
+    checks += [check_read, check_up]
     pred_voxel = r.logits.argmax(1)[r.partition.in_component]
     up_agree = float((pred_voxel[plain_idx.cpu().numpy()] == r.labels).mean())
     print(f"[check] spread labels equal to the plain nn1's: {up_agree:.6f}")
@@ -225,18 +287,34 @@ def main() -> int:
     if not np.allclose(r.logits, cpu_logits, atol=1e-3, rtol=1e-3):
         raise AssertionError("model logits on the card disagree with the CPU")
 
-    # ---- 6. result lines
+    # ---- 7. nn1 at its three shapes: kernel, plain, library, bound
+    shapes = []
+    for (db, q, check, library) in ((room, ann, check_read, False),
+                                    (vox, room, check_up, True),
+                                    (room, q_sub, check_sub, True)):
+        ms = cuda_ms(lambda: nn1_cuda(db, q), reps=3)
+        bound_ms, bound_by = nn1_bound_ms(len(db), len(q))
+        lib_ms = library_nn1_ms(db, q) if library else None
+        shapes.append({"shape": check["shape"], "ms": ms,
+                       "plain_ms": check["plain_ms"], "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms,
+                       "splits": nn1_plan(len(q), len(db))[0]})
+        print(f"[time] nn1 {json.dumps(shapes[-1])}", flush=True)
+
+    # ---- 8. result lines; the top-level numbers are the read shape's
+    # (1M x 1M, the largest launch of the path), library_ms null there
+    read = shapes[0]
     kernels = [{
         "name": "nn1",
         "route": "cuda",
         "source": "superpoint_graph_tpu_torch/csrc/nn1.cu",
         "replaces": "superpoint_graph_tpu/ops/nn1_pallas.py:27",
         "launches": launches,
-        "max_abs_err": max(c["max_abs_err"]
-                           for c in (check_sub, check_read, check_up)),
-        "ms": ms,
-        "plain_ms": check_read["plain_ms"],
-        "shape": check_read["shape"],
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        **{k: read[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "shape")},
+        "shapes": shapes,
+        "ptxas": [line for line in ptxas.splitlines() if "Used" in line],
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}")

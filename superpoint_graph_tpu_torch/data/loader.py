@@ -17,6 +17,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from ..device import card_unless
 from ..models.spgmodel import SpgBatch
 
 # column layout of parsed superpoint rows (s3dis_dataset.py:151-158)
@@ -125,10 +126,12 @@ def _bucket(n, b):
 
 
 def collate_spg(samples: Sequence[dict], cfg: LoaderConfig, n_classes: int,
-                n_ch: int, device="cpu") -> SpgBatch:
+                n_ch: int, device=None) -> SpgBatch:
     """Concatenate per-cloud samples into one padded disconnected union of
-    torch tensors on `device`, with the edge-feature compaction (the fnet
-    runs once per unique feature row; reference ecc/utils.py:44-48)."""
+    torch tensors on `device` (default: the card), with the edge-feature
+    compaction (the fnet runs once per unique feature row; reference
+    ecc/utils.py:44-48)."""
+    device = card_unless(device)
     n_sp = sum(s["node_gt"].shape[0] for s in samples)
     n_ed = sum(len(s["edges"]) for s in samples)
     cap_sp = _bucket(n_sp, cfg.n_sp_bucket)

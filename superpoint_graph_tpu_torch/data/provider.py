@@ -1,7 +1,8 @@
 """S3DIS room reader and label up-sampling, through the nn1 kernel.
 
 Port of superpoint_graph_tpu/data/provider.py (`read_s3dis_format`,
-`interpolate_labels`; reference provider.py:185-217, 681-687). The text
+`interpolate_labels`, `S3DIS_LABELS`, `object_name_to_label`; reference
+provider.py:185-247, 681-687). The text
 files are parsed with numpy instead of pandas. All annotation objects go
 through ONE nn1 call over their concatenated points; labels and object ids
 are then written slice by slice in file order, so a point claimed by two
@@ -15,9 +16,20 @@ import os
 import numpy as np
 import torch
 
-from superpoint_graph_tpu.data.provider import object_name_to_label
-
+from ..device import card_unless
 from ..ops.nn1 import nn1
+
+S3DIS_LABELS = {
+    "ceiling": 1, "floor": 2, "wall": 3, "column": 4, "beam": 5, "window": 6,
+    "door": 7, "table": 8, "chair": 9, "bookcase": 10, "sofa": 11, "board": 12,
+    "clutter": 13, "stairs": 0,
+}
+
+
+def object_name_to_label(object_class: str) -> int:
+    """S3DIS object-name -> class id (provider.py:229-247); unknown names
+    give 0."""
+    return S3DIS_LABELS.get(object_class, 0)
 
 
 def read_rows(path: str) -> np.ndarray:
@@ -42,9 +54,11 @@ def _nn1_host(db: np.ndarray, queries: np.ndarray, device) -> np.ndarray:
     ).cpu().numpy()
 
 
-def read_s3dis_format(raw_path: str, label_out: bool = True, device="cpu"):
+def read_s3dis_format(raw_path: str, label_out: bool = True, device=None):
     """Room txt + Annotations/*.txt objects re-associated by exact 1-NN on
-    `device`. Returns (xyz f32, rgb u8[, labels u8, objects u32])."""
+    `device` (default: the card). Returns (xyz f32, rgb u8[, labels u8,
+    objects u32])."""
+    device = card_unless(device)
     room = read_rows(raw_path)
     xyz = np.ascontiguousarray(room[:, 0:3], dtype=np.float32)
     if room.shape[1] >= 6:
@@ -70,9 +84,10 @@ def read_s3dis_format(raw_path: str, label_out: bool = True, device="cpu"):
     return xyz, rgb, labels, objects
 
 
-def interpolate_labels(xyz_up, xyz, labels, device="cpu"):
+def interpolate_labels(xyz_up, xyz, labels, device=None):
     """Labels of the pruned cloud `xyz` spread to the full cloud `xyz_up` by
-    exact 1-NN on `device` (provider.py:681-687)."""
+    exact 1-NN on `device`, default the card (provider.py:681-687)."""
+    device = card_unless(device)
     labels = np.asarray(labels)
     if labels.ndim > 1 and labels.shape[1] > 1:
         labels = np.argmax(labels, 1)

@@ -20,3 +20,12 @@ def cuda_device(index: int = 0) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", index)
+
+
+def card_unless(device) -> torch.device:
+    """`device` as a torch.device; None means the card, `cuda_device(0)`.
+
+    The port's entry points take `device=None` and call this first, so they
+    run on the GPU unless the caller names another device (the CPU tests
+    pass device="cpu"), and raise where there is no card."""
+    return cuda_device(0) if device is None else torch.device(device)

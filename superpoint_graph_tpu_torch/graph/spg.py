@@ -11,6 +11,7 @@ import numpy as np
 import torch
 from scipy.spatial import Delaunay
 
+from ..device import card_unless
 from ..ops.knn import knn
 
 
@@ -33,7 +34,7 @@ def _delaunay_cross_edges(xyz, in_component) -> np.ndarray:
     return _cross_edges(src, tgt, in_component)
 
 
-def _knn_cross_edges(xyz, in_component, k: int = 10, device="cpu"):
+def _knn_cross_edges(xyz, in_component, device, k: int = 10):
     """kNN edges crossing components (both directions, unique)."""
     idx, _ = knn(torch.tensor(xyz, device=device), k)
     tgt = idx.cpu().numpy().reshape(-1)
@@ -85,11 +86,13 @@ def _component_stats(xyz, in_component, n_com):
 
 
 def compute_sp_graph(xyz, d_max, in_component, labels, n_labels,
-                     adjacency="delaunay", knn_edges=None, device="cpu"):
+                     adjacency="delaunay", knn_edges=None, device=None):
     """The superpoint graph dict, with the reference's keys, shapes and
     dtypes (graphs.py:75-210). `knn_edges=(source, target)` reuses existing
-    adjacency edges as superedge support. (The JAX version's `components`
-    argument, which it never reads, is dropped.)"""
+    adjacency edges as superedge support; adjacency="knn" searches on
+    `device` (default: the card). (The JAX version's `components` argument,
+    which it never reads, is dropped.)"""
+    device = card_unless(device)
     xyz = np.asarray(xyz, np.float32)
     in_component = np.asarray(in_component).astype(np.int64)
     n_com = int(in_component.max()) + 1
@@ -102,7 +105,7 @@ def compute_sp_graph(xyz, d_max, in_component, labels, n_labels,
     elif adjacency == "delaunay":
         edges = _delaunay_cross_edges(xyz, in_component)
     elif adjacency == "knn":
-        edges = _knn_cross_edges(xyz, in_component, device=device)
+        edges = _knn_cross_edges(xyz, in_component, device)
     else:
         raise ValueError(f"unknown adjacency {adjacency!r}")
 

@@ -3,9 +3,11 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first use
 with `nvcc` for Hopper (sm_90a) into `_build/` inside the package (listed in
 .gitignore), then loaded with ctypes. The library's file name carries a hash
-of the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs at import time: the CPU tests
-import every module on a machine with no nvcc.
+of the source, of every `csrc/*.cuh` header and of the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. ptxas's
+report (registers, shared memory, spills of each kernel) is kept beside the
+library. Nothing here runs at import time: the CPU tests import every module
+on a machine with no nvcc.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -40,15 +42,33 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
-def build(name: str) -> tuple[Path, float]:
-    """Compile csrc/<name>.cu unless its library exists; returns (path,
-    seconds spent compiling, 0.0 when it was already built)."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    if out.is_file():
-        return out, 0.0
+def _digest(src: Path) -> str:
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def ptxas_summary(log: str) -> str:
+    """ptxas's per-kernel lines (function, registers and shared memory,
+    spills) from nvcc's -Xptxas -v output, one per line."""
+    keep = ("Compiling entry function", "Used ", "spill stores")
+    return "\n".join(line.split("ptxas info    :")[-1].strip()
+                     for line in log.splitlines()
+                     if any(k in line for k in keep))
+
+
+def build(name: str, src: Path | None = None) -> tuple[Path, float, str]:
+    """Compile csrc/<name>.cu (or another source `src` of the same kernel,
+    for A/B timing) unless its library exists; returns (path, seconds
+    spent compiling, 0.0 when it was already built, ptxas_summary of the
+    build)."""
+    src = CSRC_DIR / f"{name}.cu" if src is None else Path(src)
+    out = BUILD_DIR / f"lib{name}_{_digest(src)}.so"
+    report = out.with_suffix(".ptxas.txt")
+    if out.is_file() and report.is_file():
+        return out, 0.0, report.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     # compile to a private name, then rename: a concurrent build never loads
@@ -62,15 +82,17 @@ def build(name: str) -> tuple[Path, float]:
             raise RuntimeError(
                 f"nvcc failed for {name}.cu:\n{res.stdout}\n{res.stderr}"
             )
+        summary = ptxas_summary(res.stdout + res.stderr)
+        report.write_text(summary)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return out, time.perf_counter() - t0
+    return out, time.perf_counter() - t0, summary
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
-    path, _ = build(name)
+    path, _, _ = build(name)
     return ctypes.CDLL(str(path))

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import card_unless
+
 BIGCLOUD_THRESHOLD = 300_000  # points (superpoint_graph_tpu/ops/knn.py:963)
 _SPARE = 8  # extra candidates re-ranked exactly: covers f32 near-ties
 
@@ -60,11 +62,12 @@ def knn(xyz: torch.Tensor, k: int, *, block_q: int = 2048
 
 
 def compute_graph_nn_2(xyz: np.ndarray, k_nn_adj: int, k_nn_geof: int,
-                       device="cpu"):
+                       device=None):
     """Adjacency graph + geof neighbour table from ONE search at k_nn_geof
     (reference graphs.py:26-73). Returns (graph dict of numpy
     {is_nn, source u32, target u32, distances f32}, geof neighbours
-    [n, k_nn_geof] int64 tensor on `device`)."""
+    [n, k_nn_geof] int64 tensor on `device`, default the card)."""
+    device = card_unless(device)
     assert k_nn_adj <= k_nn_geof
     n = len(xyz)
     xyz_t = torch.as_tensor(np.ascontiguousarray(xyz, np.float32),

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import card_unless
+
 
 def voxel_prune(xyz: torch.Tensor, voxel_size: float, rgb: torch.Tensor,
                 labels: torch.Tensor | None, objects: torch.Tensor | None,
@@ -65,10 +67,11 @@ def voxel_prune(xyz: torch.Tensor, voxel_size: float, rgb: torch.Tensor,
 
 
 def prune(xyz, voxel_size, rgb, labels, objects, n_labels, n_objects,
-          device="cpu"):
+          device=None):
     """`libply_c.prune` contract on numpy in and out (ply_c.cpp:497-505):
     (xyz f32, rgb u8, label_hist u32, object_hist u32) in first-occurrence
-    voxel order; the work runs on `device`."""
+    voxel order; the work runs on `device` (default: the card)."""
+    device = card_unless(device)
     xyz_t = torch.as_tensor(np.ascontiguousarray(xyz, np.float32),
                             device=device)
     rgb_t = torch.as_tensor(np.asarray(rgb), device=device)

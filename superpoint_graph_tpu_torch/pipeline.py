@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .device import card_unless
 from .graph.spg import compute_sp_graph
 from .ops import voxel
 from .ops.cutpursuit import cutpursuit as cutpursuit_exact
@@ -57,10 +58,11 @@ class PartitionResult:
     times: dict  # features / partition / spg seconds
 
 
-def partition_features(xyz: np.ndarray, cfg: PartitionConfig, device="cpu"):
+def partition_features(xyz: np.ndarray, cfg: PartitionConfig, device=None):
     """kNN graphs + geometric features (the 'features' bucket). The geof
-    neighbour table stays on `device` between the two; returns (graph_nn
-    dict of numpy, geof [n, 4] f32 numpy)."""
+    neighbour table stays on `device` (default: the card) between the two;
+    returns (graph_nn dict of numpy, geof [n, 4] f32 numpy)."""
+    device = card_unless(device)
     graph_nn, target_geof = compute_graph_nn_2(
         xyz, cfg.k_nn_adj, cfg.k_nn_geof, device=device
     )
@@ -95,16 +97,18 @@ def partition_cloud(
     objects: Optional[np.ndarray] = None,
     n_labels: int = 0,
     cfg: PartitionConfig = PartitionConfig(),
-    device="cpu",
+    device=None,
 ) -> PartitionResult:
     """Prune, features, exact cut pursuit and superpoint graph of one cloud;
-    device stages run on `device`, the solver and the SPG on the host."""
+    device stages run on `device` (default: the card), the solver and the
+    SPG on the host."""
     if cfg.cp_backend != "exact":
         raise NotImplementedError(
             f"cp_backend={cfg.cp_backend!r}: the device cut-pursuit solver "
             "(and the giant-cloud chunked path) is not ported yet (ROADMAP "
             "queue 1 item 5); use cp_backend='exact'"
         )
+    device = card_unless(device)
     times = {}
     t0 = time.perf_counter()
     if cfg.voxel_width > 0:

@@ -20,6 +20,7 @@ from .data.loader import (LoaderConfig, collate_spg, load_spg_sample,
 from .data.parsed import build_point_matrix, parsed_entries
 from .data.provider import interpolate_labels, read_s3dis_format
 from .data.spg_io import EdgeFeatScaler, spg_entry
+from .device import card_unless
 from .learn.infer import eval_step
 from .models.spgmodel import SpgBatch
 from .pipeline import PartitionConfig, PartitionResult, partition_cloud
@@ -40,15 +41,15 @@ class RoomLabels:
     times: dict           # seconds per stage
 
 
-def label_room(raw_path: str, model, device,
+def label_room(raw_path: str, model, device=None,
                cfg: PartitionConfig = PartitionConfig(spg_adjacency="knn"),
                loader_cfg: LoaderConfig = LoaderConfig(),
                edge_attribs: str = EDGE_ATTRIBS,
                scaler: EdgeFeatScaler | None = None) -> RoomLabels:
     """Run the serving path on one room; `model` is an SpgModel in eval
-    mode on `device`, `scaler` the edge-feature scaler it was trained with
-    (None: features unscaled)."""
-    device = torch.device(device)
+    mode on `device` (default: the card), `scaler` the edge-feature scaler
+    it was trained with (None: features unscaled)."""
+    device = card_unless(device)
     times = {}
 
     def stage(name, fn, *args, **kw):

@@ -9,10 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from superpoint_graph_tpu.learn.convert_torch import convert_state_dict
+from superpoint_graph_tpu.learn import convert_torch as convert_j
 from superpoint_graph_tpu.models import SpgModel as FlaxSpgModel
 from superpoint_graph_tpu.models.spgmodel import SpgBatch as FlaxBatch
-from superpoint_graph_tpu_torch.learn.convert_jax import flax_to_state_dict
+from superpoint_graph_tpu_torch.learn.convert_jax import (convert_state_dict,
+                                                          flax_to_state_dict)
 from superpoint_graph_tpu_torch.models.spgmodel import SpgBatch, SpgModel
 
 FLAGSHIP = dict(
@@ -111,18 +112,21 @@ CASES = [
      11, 11, 0.5, True),
     ("lstm", dict(SMALL, model_config="lstm_2_0,f_6"), 11, 6, 0.0, False),
     ("crf", dict(SMALL, model_config="gru_2_0,f_6,crf_2"), 11, 11, 0.0, True),
-    # no 'b' token: convert_state_dict maps it under a MaskedBatchNorm_0
-    # level that the flax GraphNetwork does not have
     ("r_d_tokens", dict(SMALL, model_config="gru_1_0,r,d_0.3,f_6"),
      14, 11, 0.0, False),
+    # 'b' tokens: flax names the layer ecc/{d}_bn (affine, and b_na without
+    # scale or bias)
+    ("b_token", dict(SMALL, model_config="gru_2,b,f_6"), 11, 11, 0.0, False),
+    ("b_na_token", dict(SMALL, model_config="gru_1_0,b_na,r,f_6"),
+     11, 11, 0.0, True),
 ]
 
 
 @pytest.mark.parametrize("name,kw,n_ch,stn,prelast_do,compact", CASES,
                          ids=[c[0] for c in CASES])
 def test_spgmodel_logits_match_flax(name, kw, n_ch, stn, prelast_do, compact):
-    """Logits of the whole model within atol/rtol 1e-4; the torch -> flax
-    map of the port's state dict reproduces the flax tree exactly."""
+    """Logits of the whole model within atol/rtol 1e-4; the port's torch ->
+    flax map of its state dict reproduces the flax tree exactly."""
     fmodel, variables, tmodel, rng = _pair(kw, n_ch, stn, prelast_do, seed=7)
     a = _batch_arrays(rng, n_ch, kw["fnet_widths"][0], compact=compact)
     want = np.asarray(jax.jit(lambda v, b: fmodel.apply(v, b, train=False))(
@@ -133,6 +137,20 @@ def test_spgmodel_logits_match_flax(name, kw, n_ch, stn, prelast_do, compact):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
     _assert_trees_equal(convert_state_dict(tmodel.state_dict(), tmodel),
                         variables)
+
+
+@pytest.mark.parametrize("name,kw,n_ch,stn,prelast_do,compact",
+                         [c for c in CASES if "b_" not in c[0]],
+                         ids=[c[0] for c in CASES if "b_" not in c[0]])
+def test_convert_state_dict_copy_matches_jax(name, kw, n_ch, stn, prelast_do,
+                                             compact):
+    """Without a 'b' token, the port's copy of the torch -> flax map gives
+    the JAX package's tree exactly (with one, the JAX map nests the layer
+    under a MaskedBatchNorm_0 level that the flax model does not have)."""
+    _, variables, tmodel, _ = _pair(kw, n_ch, stn, prelast_do, seed=11)
+    sd = tmodel.state_dict()
+    _assert_trees_equal(convert_state_dict(sd, tmodel),
+                        convert_j.convert_state_dict(sd, tmodel))
 
 
 def test_pointnet_embeddings_match_flax():

@@ -82,10 +82,10 @@ def test_read_s3dis_format_matches_jax(tmp_path):
     write_s3dis_room(str(tmp_path), "Area_1", "room_0",
                      np.random.RandomState(3))
     path = str(tmp_path / "data" / "Area_1" / "room_0" / "room_0.txt")
-    for a, b in zip(rt(path), rj(path)):
+    for a, b in zip(rt(path, device="cpu"), rj(path)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    xyz, rgb = rt(path, label_out=False)
+    xyz, rgb = rt(path, label_out=False, device="cpu")
     assert xyz.shape == rgb.shape == (2500, 3)
 
 
@@ -100,7 +100,7 @@ def test_synthetic_room_writer_reads_back(tmp_path):
 
     path, want, n_objects = write_s3dis_room(
         tmp_path / "Area_1" / "room_0", np.random.RandomState(4), 3000)
-    got = rt(str(path))
+    got = rt(str(path), device="cpu")
     for a, b in zip(got, rj(str(path))):
         np.testing.assert_array_equal(a, b)
     assert len(np.unique(got[3])) == n_objects
@@ -116,7 +116,8 @@ def test_interpolate_labels_matches_jax(rng):
     xyz = rng.rand(300, 3).astype(np.float32)
     xyz_up = rng.rand(1000, 3).astype(np.float32)
     hist = rng.randint(0, 5, (300, 4))
-    np.testing.assert_array_equal(it(xyz_up, xyz, hist), ij(xyz_up, xyz, hist))
+    np.testing.assert_array_equal(it(xyz_up, xyz, hist, device="cpu"),
+                                  ij(xyz_up, xyz, hist))
 
 
 # ---------------------------------------------------------------- prune
@@ -129,7 +130,8 @@ def test_prune_matches_jax(rng, with_labels):
     labels = rng.randint(0, 6, 3000) if with_labels else None
     objects = rng.randint(0, 9, 3000) if with_labels else None
     n_lab, n_obj = (5, 8) if with_labels else (0, 0)
-    got = voxel_t.prune(xyz, 0.1, rgb, labels, objects, n_lab, n_obj)
+    got = voxel_t.prune(xyz, 0.1, rgb, labels, objects, n_lab, n_obj,
+                        device="cpu")
     want = voxel_j.prune(xyz, 0.1, rgb, labels, objects, n_lab, n_obj)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -170,7 +172,7 @@ def test_compute_graph_nn_2_matches_jax(rng):
     """Adjacency graph: same keys and dtypes, >= 99% equal targets,
     distances within rtol 1e-5; the geof table has k_geof columns."""
     xyz = rng.rand(800, 3).astype(np.float32)
-    g_t, nb_t = knn_t.compute_graph_nn_2(xyz, 5, 15)
+    g_t, nb_t = knn_t.compute_graph_nn_2(xyz, 5, 15, device="cpu")
     g_j, nb_j = knn_j.compute_graph_nn_2(xyz, 5, 15)
     assert nb_t.shape == (800, 15)
     for key in ("source", "target", "distances"):
@@ -294,7 +296,7 @@ def test_compute_sp_graph_matches_jax(room_graph, mode):
     kw = {"adjacency": "knn" if mode != "delaunay" else "delaunay"}
     if mode == "knn_edges":
         kw["knn_edges"] = (g["source"], g["target"])
-    got = st(xyz, 0.0, in_comp, hist, 6, **kw)
+    got = st(xyz, 0.0, in_comp, hist, 6, device="cpu", **kw)
     want = sj(xyz, 0.0, in_comp, comps, hist, 6, **kw)
     assert got.keys() == want.keys()
     for key in want:

@@ -43,8 +43,8 @@ def partitions(room):
     from superpoint_graph_tpu_torch.pipeline import PartitionConfig as CT
     from superpoint_graph_tpu_torch.pipeline import partition_cloud as pt
 
-    raw_t, raw_j = rt(room), rj(room)
-    got = pt(*raw_t, n_labels=13, cfg=CT(spg_adjacency="knn"))
+    raw_t, raw_j = rt(room, device="cpu"), rj(room)
+    got = pt(*raw_t, n_labels=13, cfg=CT(spg_adjacency="knn"), device="cpu")
     want = pj(*raw_j, n_labels=13,
               cfg=CJ(cp_backend="exact", spg_adjacency="knn"))
     return got, want, raw_t[0]
@@ -194,7 +194,7 @@ def test_loader_matches_jax(partitions, tmp_path):
     for key in ("clouds", "clouds_global", "cloud_flag"):
         np.testing.assert_array_equal(s_t[key], s_j[key])
         np.testing.assert_array_equal(s_f[key], s_j[key])
-    b_t = lt.collate_spg([s_t], cfg_t, 13, 14)
+    b_t = lt.collate_spg([s_t], cfg_t, 13, 14, device="cpu")
     b_j = lj.collate_spg([s_j], cfg_j, 13, 14)
     for key, val in vars(b_t).items():
         ref = getattr(b_j, key)
@@ -213,9 +213,77 @@ def test_partition_rejects_unported_backends():
                         cfg=PartitionConfig(cp_backend="tpu"))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_synthetic_room_copy_matches_jax(seed):
+    """The port's synthetic_room gives the JAX package's arrays, dtype and
+    value, for the default room and the smoke's noisy, cluttered one."""
+    from superpoint_graph_tpu.data.synthetic import synthetic_room as sj
+    from superpoint_graph_tpu_torch.data.synthetic import synthetic_room as st
+
+    for kw in ({}, dict(n_points=7000, noise=0.008, clutter_blobs=True)):
+        got = st(np.random.RandomState(seed), **kw)
+        want = sj(np.random.RandomState(seed), **kw)
+        for a, b in zip(got, want, strict=True):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+def test_s3dis_labels_copy_matches_jax():
+    from superpoint_graph_tpu.data import provider as pj
+    from superpoint_graph_tpu_torch.data import provider as pt
+
+    assert pt.S3DIS_LABELS == pj.S3DIS_LABELS
+    for name in [*pj.S3DIS_LABELS, "unknown", ""]:
+        assert pt.object_name_to_label(name) == pj.object_name_to_label(name)
+
+
+def _entry_point_calls():
+    from superpoint_graph_tpu_torch.data.loader import LoaderConfig, collate_spg
+    from superpoint_graph_tpu_torch.data.provider import (interpolate_labels,
+                                                         read_s3dis_format)
+    from superpoint_graph_tpu_torch.graph.spg import compute_sp_graph
+    from superpoint_graph_tpu_torch.ops.knn import compute_graph_nn_2
+    from superpoint_graph_tpu_torch.ops.voxel import prune
+    from superpoint_graph_tpu_torch.pipeline import (PartitionConfig,
+                                                     partition_cloud,
+                                                     partition_features)
+    from superpoint_graph_tpu_torch.room import label_room
+
+    xyz = np.random.RandomState(0).rand(50, 3).astype(np.float32)
+    return {
+        "read_s3dis_format": lambda: read_s3dis_format("room.txt"),
+        "interpolate_labels": lambda: interpolate_labels(xyz, xyz,
+                                                         np.zeros(50, int)),
+        "prune": lambda: prune(xyz, 0.1, np.zeros((50, 3), np.uint8), None,
+                               None, 0, 0),
+        "compute_graph_nn_2": lambda: compute_graph_nn_2(xyz, 2, 4),
+        "compute_sp_graph": lambda: compute_sp_graph(
+            xyz, 0.0, np.zeros(50, int), None, 0, adjacency="knn"),
+        "partition_features": lambda: partition_features(xyz,
+                                                         PartitionConfig()),
+        "partition_cloud": lambda: partition_cloud(xyz),
+        "collate_spg": lambda: collate_spg([], LoaderConfig(), 13, 14),
+        "label_room": lambda: label_room("room.txt", None),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "read_s3dis_format", "interpolate_labels", "prune", "compute_graph_nn_2",
+    "compute_sp_graph", "partition_features", "partition_cloud",
+    "collate_spg", "label_room"])
+def test_entry_points_default_to_card(name):
+    """Called without `device`, every entry point asks for the card, and
+    raises where there is none rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default would use it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_point_calls()[name]()
+
+
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imports without jax,
-    flax or h5py (a fresh interpreter)."""
+    flax, h5py, pandas or any module of the JAX package (a fresh
+    interpreter)."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import superpoint_graph_tpu_torch as p\n"
@@ -225,6 +293,8 @@ def test_port_imports_no_jax():
         "'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in ('jax', 'flax', 'h5py', 'pandas') if m in sys.modules]\n"
+        "bad += [m for m in sys.modules if m == 'superpoint_graph_tpu'\n"
+        "        or m.startswith('superpoint_graph_tpu.')]\n"
         "assert not bad, bad\n"
         "print('clean', len(list(pkgutil.walk_packages(p.__path__))))\n"
     )
