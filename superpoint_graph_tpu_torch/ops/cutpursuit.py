@@ -8,9 +8,10 @@ The greedy matching runs as the plain Python scan (the JAX package may call
 its native C++ twin, same result).
 
 Solves  argmin_x sum_i nw_i ||x_i - f_i||^2 + reg sum_(u,v) w_uv [x_u != x_v]
-over piecewise-constant x (Landrieu & Obozinski 2017, l0 variant). This is
-the slice's one host-bound stage; the device solver is ROADMAP queue 1
-item 5.
+over piecewise-constant x (Landrieu & Obozinski 2017, l0 variant). The
+pipeline runs it on request (`cp_backend="exact"`), as the oracle the device
+solver (ops/cutpursuit_band.py) is held to; `merge_regions` is also the
+device solver's host merge step.
 """
 from __future__ import annotations
 

@@ -62,11 +62,14 @@ def knn(xyz: torch.Tensor, k: int, *, block_q: int = 2048
 
 
 def compute_graph_nn_2(xyz: np.ndarray, k_nn_adj: int, k_nn_geof: int,
-                       device=None):
+                       device=None, return_device: bool = False):
     """Adjacency graph + geof neighbour table from ONE search at k_nn_geof
     (reference graphs.py:26-73). Returns (graph dict of numpy
     {is_nn, source u32, target u32, distances f32}, geof neighbours
-    [n, k_nn_geof] int64 tensor on `device`, default the card)."""
+    [n, k_nn_geof] int64 tensor on `device`, default the card). With
+    `return_device`, also the search's tables on `device`, {"idx": [n,
+    k_nn_geof] int64, "d2": [n, k_nn_geof] f32}, for the device cut pursuit
+    (the JAX version's `dev`, without pad rows)."""
     device = card_unless(device)
     assert k_nn_adj <= k_nn_geof
     n = len(xyz)
@@ -81,4 +84,6 @@ def compute_graph_nn_2(xyz: np.ndarray, k_nn_adj: int, k_nn_geof: int,
         "target": idx_adj.reshape(-1).astype(np.uint32),
         "distances": dist.reshape(-1).astype(np.float32),
     }
+    if return_device:
+        return graph, idx, {"idx": idx, "d2": d2}
     return graph, idx

@@ -1,11 +1,14 @@
 """Label one raw S3DIS room end to end: the port's serving path.
 
 raw room + Annotations (nn1 kernel) -> voxel prune -> kNN + geometric
-features -> exact cut pursuit -> superpoint graph -> superpoint point sets ->
+features -> cut pursuit -> superpoint graph -> superpoint point sets ->
 SpgModel logits -> per-superpoint classes spread to the raw points (nn1
-kernel). Device stages run on `device`; cut pursuit and the superpoint
-graph run on the host. Each stage's wall time is recorded, synchronised
-with the card when `device` is CUDA.
+kernel). With the default config the cut pursuit is the device solver over
+the kNN tables where they lie on `device`, then the host merge step
+(`pipeline._cutpursuit_device_path`); the superpoint graph and the batch
+are built on the host. Each stage's wall time is recorded, synchronised
+with the card when `device` is CUDA; on the device solver's path
+`partition_cloud.partition.solve` and `.merge` split the cut pursuit.
 """
 from __future__ import annotations
 

@@ -91,3 +91,60 @@ def test_nn1_kernel_size_edges(dev, n_db, n_q):
 def test_nn1_kernel_rejects_mixed_devices(dev):
     with pytest.raises(ValueError):
         nn1(torch.zeros((4, 3), device=dev), torch.zeros((4, 3)))
+
+
+# ---------------------------------------------------------------- partition
+def test_prune_on_card_equals_cpu(dev):
+    """The prune on the card gives the CPU's voxels bit for bit: the same
+    bins (true division, not a reciprocal multiply) and the same sums (in
+    input order within a voxel, not float atomics)."""
+    from superpoint_graph_tpu_torch.data.synthetic import synthetic_room
+    from superpoint_graph_tpu_torch.ops.voxel import prune
+
+    xyz, rgb, labels, objects = synthetic_room(
+        np.random.RandomState(0), 200_000, noise=0.008, clutter_blobs=True)
+    args = (xyz, 0.03, rgb, labels, objects, 6, int(objects.max()) + 1)
+    for got, want in zip(prune(*args, device=dev), prune(*args, device="cpu")):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("accept", ["global", "region"])
+def test_device_solver_on_card_matches_cpu(dev, accept):
+    """The device cut pursuit on the card against the same solve on the CPU,
+    on planted clusters on a 40 x 60 grid with unit weights: the same
+    labels, no CC call at its cap."""
+    from superpoint_graph_tpu_torch.ops import cutpursuit_band as cb
+
+    h, w = 40, 60
+    idx = np.arange(h * w).reshape(h, w)
+    src = np.r_[idx[:, :-1].ravel(), idx[:-1, :].ravel()]
+    tgt = np.r_[idx[:, 1:].ravel(), idx[1:, :].ravel()]
+    rng = np.random.RandomState(0)
+    f = np.zeros((h * w, 3), np.float32)
+    f[(idx % w >= w // 3).ravel(), 0] = 1.0
+    f[(idx // w >= h // 2).ravel(), 1] = 1.0
+    f += rng.randn(h * w, 3).astype(np.float32) * 0.05
+    ij = np.stack(np.meshgrid(np.arange(h), np.arange(w), indexing="ij"))
+    xyz = np.c_[ij.reshape(2, -1).T, np.zeros(h * w)].astype(np.float32)
+    kw = dict(accept=accept, xyz=xyz, max_iter=16 if accept == "region" else 8)
+    _, got = cb.cutpursuit_band(f, src, tgt, np.ones(len(src)), 0.1,
+                                device=dev, **kw)
+    assert cb.LAST_SOLVE_STATS["cc_capped"] == 0
+    _, want = cb.cutpursuit_band(f, src, tgt, np.ones(len(src)), 0.1,
+                                 device="cpu", **kw)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_segment_sums_on_card_repeat_bit_for_bit(dev):
+    """The solver's segment sums on the card give the same bits on every
+    call (a float index_add_ there adds by atomics in no fixed order)."""
+    from superpoint_graph_tpu_torch.ops.cutpursuit_band import _Segments
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    seg = torch.randint(0, 1000, (2_000_000,), device=dev, generator=g)
+    seg[:1_000_000] = 3
+    data = torch.randn((2_000_000, 7), device=dev, generator=g)
+    segs = _Segments(seg, 1000)
+    first = segs.sum(data)
+    for _ in range(3):
+        assert torch.equal(_Segments(seg, 1000).sum(data), first)

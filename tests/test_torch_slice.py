@@ -4,7 +4,9 @@ import and entry-point contracts.
 A 2,500-point room written in the raw S3DIS layout goes through both
 packages: read_s3dis_format -> partition_cloud(cp_backend="exact",
 spg_adjacency="knn") -> superpoint batch -> SpgModel (flax weights carried
-by the bridge) -> labels spread to the raw points."""
+by the bridge) -> labels spread to the raw points. The default cut pursuit
+(the device solver; the JAX package's "tpu") is held to the JAX one on the
+same room by quality: energy, component count and OOA."""
 import os
 import subprocess
 import sys
@@ -35,7 +37,8 @@ def room(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def partitions(room):
-    """(port result, JAX result, raw xyz) of the same room, CLI defaults."""
+    """(port result, JAX result, raw xyz) of the same room, CLI defaults
+    but the exact solver."""
     from superpoint_graph_tpu.data.provider import read_s3dis_format as rj
     from superpoint_graph_tpu.pipeline import PartitionConfig as CJ
     from superpoint_graph_tpu.pipeline import partition_cloud as pj
@@ -44,7 +47,8 @@ def partitions(room):
     from superpoint_graph_tpu_torch.pipeline import partition_cloud as pt
 
     raw_t, raw_j = rt(room, device="cpu"), rj(room)
-    got = pt(*raw_t, n_labels=13, cfg=CT(spg_adjacency="knn"), device="cpu")
+    got = pt(*raw_t, n_labels=13, cfg=CT(cp_backend="exact",
+                                         spg_adjacency="knn"), device="cpu")
     want = pj(*raw_j, n_labels=13,
               cfg=CJ(cp_backend="exact", spg_adjacency="knn"))
     return got, want, raw_t[0]
@@ -140,7 +144,8 @@ def test_slice_logits_and_labels_match_jax(room, partitions, tmp_path):
     np.testing.assert_array_equal(scaler.mean, scaler_j.mean)
     np.testing.assert_array_equal(scaler.scale, scaler_j.scale)
     got = label_room(room, tmodel.eval(), "cpu",
-                     cfg=PartitionConfig(spg_adjacency="knn"),
+                     cfg=PartitionConfig(cp_backend="exact",
+                                         spg_adjacency="knn"),
                      loader_cfg=LoaderConfig(ptn_npts=32, ptn_minpts=10),
                      scaler=scaler)
     assert got.counts["superpoints"] == n_sp
@@ -204,13 +209,101 @@ def test_loader_matches_jax(partitions, tmp_path):
                                           err_msg=key)
 
 
-def test_partition_rejects_unported_backends():
-    from superpoint_graph_tpu_torch.pipeline import (PartitionConfig,
+@pytest.fixture(scope="module")
+def device_partitions(room):
+    """(port result with the default config, JAX result with its device
+    solver "tpu") of the same room. At 2,469 voxels the JAX package feeds its
+    solver from host arrays (cutpursuit_band, host Morton order); the port
+    takes its one device path (device Morton order), with the same pad-row
+    count (4,096 rows)."""
+    from superpoint_graph_tpu.data.provider import read_s3dis_format as rj
+    from superpoint_graph_tpu.pipeline import PartitionConfig as CJ
+    from superpoint_graph_tpu.pipeline import partition_cloud as pj
+    from superpoint_graph_tpu_torch.data.provider import read_s3dis_format as rt
+    from superpoint_graph_tpu_torch.pipeline import PartitionConfig as CT
+    from superpoint_graph_tpu_torch.pipeline import partition_cloud as pt
+
+    got = pt(*rt(room, device="cpu"), n_labels=13,
+             cfg=CT(spg_adjacency="knn"), device="cpu")
+    want = pj(*rj(room), n_labels=13,
+              cfg=CJ(cp_backend="tpu", spg_adjacency="knn"))
+    return got, want
+
+
+def test_slice_device_solver_matches_jax(device_partitions):
+    """The default cut pursuit against the JAX package's device solver on
+    the same room: energy within 3%, component count within 15%, OOA
+    against the voxels' labels within 1 point, every component one
+    connected piece of the kNN graph. Both energies on the JAX features and
+    graph."""
+    from superpoint_graph_tpu.learn.metrics import compute_OOA
+    from superpoint_graph_tpu.pipeline import (PartitionConfig,
+                                               assemble_partition_features,
+                                               edge_weights)
+    from superpoint_graph_tpu_torch.learn.metrics import disconnected_labels
+    from tests.test_cutpursuit import partition_energy
+
+    got, want = device_partitions
+    np.testing.assert_array_equal(got.xyz, want.xyz)
+    cfg = PartitionConfig()
+    feats = assemble_partition_features(want.geof, want.rgb, cfg)
+    w = edge_weights(want.graph_nn["distances"], cfg.lambda_edge_weight)
+    src = want.graph_nn["source"].astype(np.int64)
+    tgt = want.graph_nn["target"].astype(np.int64)
+    e_t, e_j = (partition_energy(feats, r.in_component, src, tgt, w,
+                                 cfg.reg_strength) for r in (got, want))
+    assert abs(e_t / e_j - 1.0) <= 0.03, (e_t, e_j)
+    n_t, n_j = len(got.components), len(want.components)
+    assert abs(n_t / n_j - 1.0) <= 0.15, (n_t, n_j)
+    ooa_t, ooa_j = (compute_OOA(r.components, r.labels[:, 1:])
+                    for r in (got, want))
+    assert abs(ooa_t - ooa_j) <= 1.0, (ooa_t, ooa_j)
+    assert disconnected_labels(got.in_component,
+                               got.graph_nn["source"].astype(np.int64),
+                               got.graph_nn["target"].astype(np.int64)) == 0
+
+
+def test_label_room_default_config_cpu(room, device_partitions):
+    """label_room with its default config on the CPU runs the device cut
+    pursuit (its solve and merge timed apart): the partition of
+    device_partitions, finite logits, one label a raw point."""
+    from superpoint_graph_tpu_torch.data.loader import LoaderConfig
+    from superpoint_graph_tpu_torch.models.spgmodel import SpgModel
+    from superpoint_graph_tpu_torch.room import label_room
+
+    got, _ = device_partitions
+    model = SpgModel(13, ptn_nfeat=14, **SMALL_MODEL)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    r = label_room(room, model.eval(), "cpu",
+                   loader_cfg=LoaderConfig(ptn_npts=32, ptn_minpts=10))
+    np.testing.assert_array_equal(r.partition.in_component, got.in_component)
+    assert r.counts["superpoints"] == len(got.components)
+    assert r.logits.shape == (len(got.components), 13)
+    assert np.isfinite(r.logits).all()
+    assert r.labels.shape == r.raw_labels.shape
+    assert {"partition_cloud.partition.solve",
+            "partition_cloud.partition.merge"} <= set(r.times)
+
+
+@pytest.mark.parametrize("case", ["unknown backend", "giant cloud"])
+def test_partition_rejects_unported_backends(case):
+    """An unknown cp_backend raises ValueError; with the device solver, a
+    cloud above CHUNKED_CP_THRESHOLD voxels (the JAX package's chunked
+    giant-cloud path, not ported yet) raises NotImplementedError."""
+    from superpoint_graph_tpu_torch.pipeline import (CHUNKED_CP_THRESHOLD,
+                                                     PartitionConfig,
                                                      partition_cloud)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        partition_cloud(np.zeros((10, 3), np.float32),
-                        cfg=PartitionConfig(cp_backend="tpu"))
+    if case == "unknown backend":
+        for backend in ("tpu", "bogus"):
+            with pytest.raises(ValueError, match="cp_backend"):
+                partition_cloud(np.zeros((10, 3), np.float32),
+                                cfg=PartitionConfig(cp_backend=backend))
+        return
+    xyz = np.random.RandomState(0).rand(CHUNKED_CP_THRESHOLD + 1, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+        partition_cloud(xyz.astype(np.float32), device="cpu",
+                        cfg=PartitionConfig(voxel_width=0.0))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -242,14 +335,17 @@ def _entry_point_calls():
     from superpoint_graph_tpu_torch.data.provider import (interpolate_labels,
                                                          read_s3dis_format)
     from superpoint_graph_tpu_torch.graph.spg import compute_sp_graph
+    from superpoint_graph_tpu_torch.ops.cutpursuit_band import cutpursuit_band
     from superpoint_graph_tpu_torch.ops.knn import compute_graph_nn_2
     from superpoint_graph_tpu_torch.ops.voxel import prune
     from superpoint_graph_tpu_torch.pipeline import (PartitionConfig,
                                                      partition_cloud,
+                                                     partition_clouds,
                                                      partition_features)
     from superpoint_graph_tpu_torch.room import label_room
 
     xyz = np.random.RandomState(0).rand(50, 3).astype(np.float32)
+    edges = np.arange(49), np.arange(1, 50)
     return {
         "read_s3dis_format": lambda: read_s3dis_format("room.txt"),
         "interpolate_labels": lambda: interpolate_labels(xyz, xyz,
@@ -262,6 +358,10 @@ def _entry_point_calls():
         "partition_features": lambda: partition_features(xyz,
                                                          PartitionConfig()),
         "partition_cloud": lambda: partition_cloud(xyz),
+        "partition_clouds": lambda: partition_clouds([(xyz, None, None,
+                                                       None)]),
+        "cutpursuit_band": lambda: cutpursuit_band(xyz, *edges,
+                                                   np.ones(49), 0.1),
         "collate_spg": lambda: collate_spg([], LoaderConfig(), 13, 14),
         "label_room": lambda: label_room("room.txt", None),
     }
@@ -270,7 +370,7 @@ def _entry_point_calls():
 @pytest.mark.parametrize("name", [
     "read_s3dis_format", "interpolate_labels", "prune", "compute_graph_nn_2",
     "compute_sp_graph", "partition_features", "partition_cloud",
-    "collate_spg", "label_room"])
+    "partition_clouds", "cutpursuit_band", "collate_spg", "label_room"])
 def test_entry_points_default_to_card(name):
     """Called without `device`, every entry point asks for the card, and
     raises where there is none rather than run on the CPU."""
@@ -287,8 +387,11 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import superpoint_graph_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__,\n"
+        "                                               p.__name__ + '.')]\n"
+        "assert 'superpoint_graph_tpu_torch.ops.cutpursuit_band' in names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
