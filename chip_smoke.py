@@ -4,7 +4,7 @@ one NVIDIA GPU.
 
 1. Header: torch / CUDA / nvcc versions, the card's name and power limit,
    which optional file-I/O packages are present.
-2. Build: every CUDA kernel of the serving path, from this checkout, with
+2. Build: every CUDA kernel of the serving paths, from this checkout, with
    ptxas's registers, shared memory and spills for each.
 3. Quick kernel check: nn1 against its plain torch version on the card,
    the room's 1,000,000 points as db and 65,536 queries.
@@ -13,21 +13,20 @@ one NVIDIA GPU.
    db points, one repeated point; sizes off every multiple of the kernel's
    tile, block and chunk; the split path at 65,536 queries and below, and
    the unsplit path.
-5. Slice: one synthetic S3DIS room of 1,000,000 raw points written in the
-   raw layout, then `label_room` with its default config: read_s3dis_format
-   (nn1) -> partition_cloud (prune, kNN, geof, the device cut-pursuit
-   solver and the host merge step, SPG) -> superpoint batch -> the flagship
-   ECC-GRU SpgModel (random weights from a seed) -> labels spread to the raw
-   points (nn1). Stage times, counts, the solver's statistics (iterations,
-   CC rounds, host syncs) and the kernel launches of this run alone are
-   printed.
+5. Room path: one synthetic S3DIS room of 1,000,000 raw points written in
+   the raw layout, then `label_room` with its default config:
+   read_s3dis_format (nn1) -> partition_cloud (prune, kNN, geof, the device
+   cut-pursuit solver and the host merge step, SPG) -> superpoint batch ->
+   the flagship ECC-GRU SpgModel (random weights from a seed) -> labels
+   spread to the raw points (nn1). Stage times, counts, the solver's
+   statistics and the kernel launches of this run alone are printed.
 6. Checks: finite logits of the right shape, reader labels against the
-   generator's, the kernel against its plain version at the slice's two
+   generator's, the kernel against its plain version at the path's two
    full shapes (room x annotation points, voxels x raw points), spread
    labels against the plain nn1's, and the card's logits against the same
    model on the CPU. Every nn1 check asks for the plain version's indices
    exactly (agreement 1.0, squared-distance error 0).
-7. Quality: the host exact solver on the slice's features and kNN graph.
+7. Quality: the host exact solver on the room's features and kNN graph.
    Both solvers' seconds, energy, component count and OOA; the run fails
    unless the device solver is within QUALITY_BOUNDS of the exact one,
    every label is one connected piece of the graph and no CC call stopped
@@ -37,17 +36,36 @@ one NVIDIA GPU.
    bit-identical (voxels, kNN, geof, the solver's labels, in_component, and
    equal to the slice's). The warm solve's time, and the region accept's
    quality for reference.
-9. Timing at the three nn1 shapes, with CUDA events: the kernel (mean of 3
-   calls after a warm-up), the plain version (one call), one PyTorch call
-   of the same function (torch.cdist in direct mode + argmin, in query
-   chunks; at the check shape and the spread shape only: at 1M x 1M it
-   would take ~21 minutes, beyond this script's time, so it is null there)
-   and the bound (6 FP32 flops a pair, the 3 FMAs
-   of the expanded form, at 67 TFLOP/s, or the bytes at 3.35 TB/s if
-   larger).
-10. One JSON line with the kernel table (top-level numbers at the read
-   shape, 1M x 1M; every shape under "shapes"), the card line, and last
-   {"ok": true, "device": {...}}.
+9. Scan path: a synthetic Semantic3D station of 8,000,000 raw points
+   (`big_scene_labeled`, x y z intensity r g b + .labels) written as text
+   (its time printed apart), then `scan.label_scan` cold and warm:
+   read_semantic3d_format (chunks of 5e6 rows pruned at 0.05 m) ->
+   partition_cloud, which past 2^19 voxels runs the giant-cloud path
+   (knn_bigcloud, chunked device cut pursuit with its heal, device SPG) ->
+   superpoint batch -> the Semantic3D SpgModel gru_10,f_8 -> classes spread
+   to every raw point by interpolate_labels_batch (nn1 per chunk). Counts,
+   stage times, the chunked solver's stats and the kNN's levels; the nn1
+   launches of the cold run alone. Checks: labels and logits well formed;
+   the partition bit-identical between the two runs; the chunked partition
+   within SCAN_BOUNDS of the port's monolithic solve on the same voxels
+   (energy, OOA on the reader's label histograms), no disconnected label,
+   no capped CC call; the kNN table equal to a direct-form brute-force
+   search on 65,536 sampled rows; nn1 at each of the spread stage's shapes
+   (the voxels against each 5e6-row chunk of raw points, the launch plan
+   the path uses) equal to nn1_plain on 65,536 sampled rows of the chunk,
+   and the path's labels of those rows equal to the voxel classes the
+   plain nn1 picks.
+10. Timing at the nn1 shapes, with CUDA events: the kernel (mean of 3
+   calls after a warm-up), the plain version (one call on the queries it
+   was checked on: all of them, or the sampled rows), one PyTorch call of
+   the same function (torch.cdist in its matrix-product mode + argmin, in
+   query chunks) and the bound (6 FP32
+   flops a pair, the 3 FMAs of the expanded form, at 67 TFLOP/s, or the
+   bytes at 3.35 TB/s if larger). The direct-mode torch.cdist yardstick
+   (~21 minutes at 1M x 1M) lives in tools/nn1_cdist_direct.py.
+11. One JSON line with the kernel table (top-level numbers at the read
+   shape, 1M x 1M; every shape under "shapes"; launches of each path), the
+   card line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero on any failure, when no CUDA device is visible, or when run
 outside a checkout of the repository. Usage, from the repository root:
@@ -94,6 +112,13 @@ FLOPS_PER_PAIR = 6
 # are set just outside that reference.
 QUALITY_BOUNDS = {"energy_ratio": 1.30, "n_comp_ratio": (0.25, 1.5),
                   "ooa_drop": 3.0}
+# the scan: raw points of the synthetic station, and the chunked partition
+# against the port's monolithic solve of the same voxels with the same
+# region-accept settings: energy ratio at most (the JAX chunked test's
+# bound, tests/test_pipeline_big.py:56), OOA points below at most
+N_SCAN = 8_000_000
+MIN_SCAN_VOXELS = 1_500_000
+SCAN_BOUNDS = {"energy_ratio": 1.10, "ooa_drop": 1.0}
 
 
 def cuda_ms(fn, reps):
@@ -136,38 +161,44 @@ def timed(fn):
 
 
 def library_nn1_ms(db, q):
-    """Milliseconds of torch.cdist (direct mode) + argmin over all queries
-    in chunks of ~2**30 distances, CUDA events, after a one-chunk warm-up.
-    A yardstick only; the port never calls it."""
+    """Milliseconds of torch.cdist (matrix-product mode, the fastest single
+    PyTorch call for it) + argmin over all queries in chunks of ~2**30
+    distances, CUDA events, after a one-chunk warm-up. A yardstick only;
+    the port never calls it."""
     import torch
 
     chunk = max(1, 2**30 // len(db))
 
     def run(queries):
         return [torch.cdist(queries[i:i + chunk], db,
-                            compute_mode="donot_use_mm_for_euclid_dist"
-                            ).argmin(1) for i in range(0, len(queries), chunk)]
+                            compute_mode="use_mm_for_euclid_dist").argmin(1)
+                for i in range(0, len(queries), chunk)]
 
     run(q[:chunk])
     return timed(lambda: run(q))[1]
 
 
-def compare_nn1(db, q, label):
-    """nn1 kernel vs its plain version on the card; returns the check's
-    numbers (the plain call timed with CUDA events) and the plain version's
-    indices, and raises unless the indices are equal on every query."""
+def compare_nn1(db, q, label, rows=None):
+    """nn1 kernel vs its plain version on the card: the kernel on every
+    query of `q` (so at that shape's launch plan), the plain version on the
+    queries `rows` of it (all when None). Returns the check's numbers (the
+    plain call timed with CUDA events) and the plain version's indices, and
+    raises unless the indices are equal on every query compared."""
     import torch
 
     from superpoint_graph_tpu_torch.ops.nn1 import nn1_cuda, nn1_plain
 
     got = nn1_cuda(db, q)
+    out = {"shape": f"db {len(db)} x queries {len(q)}"}
+    if rows is not None:
+        q, got = q[rows], got[rows]
+        out["plain_rows"] = len(rows)
     want, plain_ms = timed(lambda: nn1_plain(db, q))
     d_got = ((q - db[got]) ** 2).sum(1)
     d_want = ((q - db[want]) ** 2).sum(1)
-    out = {"shape": f"db {len(db)} x queries {len(q)}",
-           "max_abs_err": float((d_got - d_want).abs().max()),
-           "index_agreement": float((got == want).double().mean()),
-           "plain_ms": plain_ms}
+    out.update(max_abs_err=float((d_got - d_want).abs().max()),
+               index_agreement=float((got == want).double().mean()),
+               plain_ms=plain_ms)
     print(f"[check] nn1 {label}: {json.dumps(out)}", flush=True)
     if not torch.equal(got, want):
         raise AssertionError(f"nn1 kernel disagrees with its plain version "
@@ -323,6 +354,207 @@ def run_to_run_phase(r, cfg, raw, dev):
           f"{json.dumps(region)}; {json.dumps(stats)}", flush=True)
 
 
+def brute_knn_rows(xyz, ids, k, chunk=128):
+    """Exact kNN of the points `ids` of xyz among all others by a direct-form
+    brute force: every (dx^2 + dy^2) + dz^2 distance (the port's exact
+    form), the point itself excluded, the k nearest by (distance, index).
+    Returns (indices, squared distances)."""
+    import torch
+
+    out_i, out_d = [], []
+    for s in range(0, len(ids), chunk):
+        q = ids[s:s + chunk]
+        dx, dy, dz = (xyz[q, a][:, None] - xyz[None, :, a] for a in range(3))
+        d2 = (dx * dx + dy * dy) + dz * dz
+        del dx, dy, dz
+        d2[torch.arange(len(q), device=xyz.device), q] = float("inf")
+        _, cand = torch.topk(d2, k + 8, dim=1, largest=False)
+        cand, _ = torch.sort(cand, dim=1)
+        dc, order = torch.sort(torch.gather(d2, 1, cand), dim=1, stable=True)
+        out_i.append(torch.gather(cand, 1, order[:, :k]))
+        out_d.append(dc[:, :k])
+    return torch.cat(out_i), torch.cat(out_d)
+
+
+def chunked_vs_monolithic(r, cfg, dev):
+    """The scan's chunked partition against the port's single solve of the
+    same voxels (region accept, max_iter 16, stop_tol 1e-3, cc_jumps 1,
+    then the merge step over the full kNN list), both measured by the exact
+    solver's energy and by OOA on the reader's label histograms. Also the
+    kNN table recomputed (equal to the path's) for the brute-force check.
+    Returns (numbers, the kNN tables)."""
+    import torch
+
+    from superpoint_graph_tpu_torch.learn.metrics import (compute_OOA,
+                                                          disconnected_labels)
+    from superpoint_graph_tpu_torch.ops.components import group_components
+    from superpoint_graph_tpu_torch.ops.cutpursuit import (
+        _densify_first_occurrence, _energy)
+    from superpoint_graph_tpu_torch.ops.cutpursuit_band import (
+        LAST_SOLVE_STATS, cutpursuit_band_device, edge_weights_device)
+    from superpoint_graph_tpu_torch.ops.knn import knn_bigcloud
+    from superpoint_graph_tpu_torch.ops.merge_device import (
+        merge_regions_device)
+    from superpoint_graph_tpu_torch.pipeline import assemble_partition_features
+
+    part = r.partition
+    n, k = len(part.xyz), cfg.k_nn_adj
+    xyz = torch.as_tensor(part.xyz, device=dev)
+    bi, bd2, _ = knn_bigcloud(xyz, cfg.k_nn_geof)
+    same_knn = np.array_equal(bi[:, :k].reshape(-1).cpu().numpy(),
+                              part.graph_nn["target"].astype(np.int64))
+    feats = assemble_partition_features(part.geof, None, cfg)
+    f_dev = torch.as_tensor(feats, device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ic = cutpursuit_band_device(
+        f_dev, bi[:, :k], bd2[:, :k], xyz, n, cfg.reg_strength,
+        lambda_edge_weight=cfg.lambda_edge_weight, accept="region",
+        max_iter=16, stop_tol=1e-3, cc_jumps=1)
+    stats = dict(LAST_SOLVE_STATS)
+    src = torch.arange(n, device=dev).repeat_interleave(k)
+    w = edge_weights_device(bd2[:, :k].reshape(-1), cfg.lambda_edge_weight)
+    label = merge_regions_device(
+        f_dev, torch.ones(n, device=dev), torch.as_tensor(ic, device=dev),
+        src, bi[:, :k].reshape(-1), w, int(ic.max()) + 1, cfg.reg_strength)
+    ic = _densify_first_occurrence(label[ic])
+    mono_s = time.perf_counter() - t0
+    src_h = part.graph_nn["source"].astype(np.int64)
+    tgt_h = part.graph_nn["target"].astype(np.int64)
+    w_h = w.double().cpu().numpy()
+    hist = part.labels[:, 1:]
+
+    def measure(in_comp, comps):
+        e, _ = _energy(feats.astype(np.float64), np.ones(n),
+                       np.asarray(in_comp, np.int64), src_h, tgt_h, w_h,
+                       cfg.reg_strength)
+        return {"energy": e, "n_comp": len(comps),
+                "OOA": compute_OOA(comps, hist),
+                "disconnected_labels": disconnected_labels(in_comp, src_h,
+                                                           tgt_h)}
+
+    chunked = measure(part.in_component, part.components)
+    mono = measure(ic, group_components(ic))
+    mono.update(seconds=mono_s, solve=stats)
+    return {"chunked": chunked, "monolithic": mono,
+            "energy_ratio": chunked["energy"] / mono["energy"],
+            "ooa_drop": mono["OOA"] - chunked["OOA"],
+            "knn_equal_to_path": same_knn}, (xyz, bi, bd2)
+
+
+def scan_phase(dev, tmp):
+    """The Semantic3D serving path on a synthetic station (phase 9).
+    Returns (nn1 launches of the cold run, the nn1 checks of the spread
+    stage's chunks, and (the scan's voxels, its raw chunks) on the card for
+    the timing phase)."""
+    import pandas as pd
+    import torch
+
+    from superpoint_graph_tpu_torch.data.provider import reduced_labels2full
+    from superpoint_graph_tpu_torch.data.synthetic import write_semantic3d_scan
+    from superpoint_graph_tpu_torch.models.spgmodel import SpgModel
+    from superpoint_graph_tpu_torch.ops.nn1 import nn1
+    from superpoint_graph_tpu_torch.scan import (SEMA3D_CONFIG, SEMA3D_MODEL,
+                                                 VER_BATCH, label_scan)
+
+    path = Path(tmp) / "station1.txt"
+    t0 = time.perf_counter()
+    write_semantic3d_scan(path, N_SCAN, SEED)
+    print(f"[scan] wrote {N_SCAN} raw points and their labels as text in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    model = SpgModel(8, **dict(FLAGSHIP, **SEMA3D_MODEL))
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    model = model.to(dev).eval()
+    runs = []
+    for name in ("cold", "warm"):
+        nn1.launches = 0
+        t0 = time.perf_counter()
+        r = label_scan(str(path), model, dev)
+        total = time.perf_counter() - t0
+        runs.append((r, total, nn1.launches))
+        print(f"[scan] {name}: total {total:.3f} s, "
+              f"{r.counts['raw_points'] / total:.1f} raw points/s, nn1 "
+              f"launches {nn1.launches}; counts {json.dumps(r.counts)}")
+        print(f"[scan] {name} stages: " + json.dumps(
+            {k: v for k, v in r.times.items()
+             if k not in ("partition_cloud.cp_info",
+                          "partition_cloud.knn_levels")}))
+        print(f"[scan] {name} chunked cut pursuit: "
+              f"{json.dumps(r.times.get('partition_cloud.cp_info'))}")
+        print(f"[scan] {name} knn: "
+              f"{json.dumps(r.times.get('partition_cloud.knn_levels'))}",
+              flush=True)
+    (r, _, launches), (r2, _, _) = runs
+    n_sp = r.counts["superpoints"]
+    if launches < 2:
+        raise AssertionError(f"nn1 launched {launches} times on the scan")
+    if "partition_cloud.cp_info" not in r.times or r.counts["chunks"] < 4:
+        raise AssertionError("the scan did not go through the chunked path "
+                             f"with >= 4 chunks: {r.counts}")
+    if r.counts["voxels"] < MIN_SCAN_VOXELS:
+        raise AssertionError(f"{r.counts['voxels']} voxels < "
+                             f"{MIN_SCAN_VOXELS}")
+    if r.logits.shape != (n_sp, 8) or not np.isfinite(r.logits).all():
+        raise AssertionError(f"logits {r.logits.shape} not finite [n_sp, 8]")
+    if (r.labels.shape != (N_SCAN,) or r.labels.min() < 1
+            or r.labels.max() > 8):
+        raise AssertionError("scan labels out of shape or of 1..8")
+    repeat = (np.array_equal(r.partition.xyz, r2.partition.xyz)
+              and np.array_equal(r.partition.in_component,
+                                 r2.partition.in_component)
+              and np.array_equal(r.labels, r2.labels))
+    print(f"[scan] cold and warm runs bit-identical (voxels, partition, "
+          f"labels): {repeat}")
+    if not repeat:
+        raise AssertionError("the scan's partition differs between runs")
+
+    t0 = time.perf_counter()
+    cmp, (xyz, bi, bd2) = chunked_vs_monolithic(r, SEMA3D_CONFIG, dev)
+    print(f"[scan] chunked against monolithic ({time.perf_counter() - t0:.1f}"
+          f" s): {json.dumps(cmp)}; bounds {json.dumps(SCAN_BOUNDS)}",
+          flush=True)
+    if not (cmp["energy_ratio"] <= SCAN_BOUNDS["energy_ratio"]
+            and cmp["ooa_drop"] <= SCAN_BOUNDS["ooa_drop"]
+            and cmp["chunked"]["disconnected_labels"] == 0
+            and r.times["partition_cloud.cp_info"]["cc_capped"] == 0
+            and cmp["knn_equal_to_path"]):
+        raise AssertionError(f"chunked partition outside its bounds: {cmp}")
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = torch.randperm(len(xyz), device=dev, generator=g)[:N_CHECK]
+    want_i, want_d = brute_knn_rows(xyz, rows, SEMA3D_CONFIG.k_nn_geof)
+    knn_ok = torch.equal(bi[rows], want_i) and torch.equal(bd2[rows], want_d)
+    print(f"[scan] knn_bigcloud equal to brute force on {N_CHECK} rows: "
+          f"{knn_ok}", flush=True)
+    if not knn_ok:
+        raise AssertionError("knn_bigcloud differs from brute force")
+
+    # the kernel at each of the spread stage's shapes (the voxels against
+    # each ver_batch chunk of raw rows, as interpolate_labels_batch reads
+    # them), held to the plain version on N_CHECK sampled rows; the path's
+    # labels of those rows must be the voxel classes the plain nn1 picks
+    raw = pd.read_csv(path, sep=" ", header=None, usecols=[0, 1, 2]).values
+    raw = torch.as_tensor(np.ascontiguousarray(raw, np.float32), device=dev)
+    voxel_cls = reduced_labels2full(r.logits.argmax(1).astype(np.uint8) + 1,
+                                    r.partition.components, len(xyz))
+    checks, chunks = [], []
+    for c, o in enumerate(range(0, len(raw), VER_BATCH)):
+        q = raw[o:o + VER_BATCH]
+        rows = torch.randperm(len(q), device=dev, generator=g)[:N_CHECK]
+        check, want = compare_nn1(xyz, q, f"scan spread, chunk {c}", rows)
+        rows_h = rows.cpu().numpy()
+        lab_ok = np.array_equal(r.labels[o + rows_h],
+                                voxel_cls[want.cpu().numpy()])
+        print(f"[scan] chunk {c}: labels of the {N_CHECK} sampled raw points "
+              f"equal to the plain nn1's voxel classes: {lab_ok}", flush=True)
+        if not lab_ok:
+            raise AssertionError(f"scan labels of chunk {c} disagree with the "
+                                 "plain nn1")
+        checks.append(check)
+        chunks.append(q)
+    return launches, checks, (xyz, chunks)
+
+
 def main() -> int:
     if not (ROOT / "superpoint_graph_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -465,22 +697,32 @@ def main() -> int:
     quality_phase(r, cfg, solve_stats)
     run_to_run_phase(r, cfg, raw, dev)
 
-    # ---- 9. nn1 at its three shapes: kernel, plain, library, bound
+    # ---- 9. the scan path; only its own nn1 launches are counted
+    with tempfile.TemporaryDirectory() as tmp:
+        scan_launches, checks_scan, (s_vox, s_chunks) = scan_phase(dev, tmp)
+    checks += checks_scan
+
+    # ---- 10. nn1 at its shapes: kernel, plain (on plain_rows sampled
+    # queries where given), library, bound
     shapes = []
-    for (db, q, check, library) in ((room, ann, check_read, False),
-                                    (vox, room, check_up, True),
-                                    (room, q_sub, check_sub, True)):
+    for (db, q, check, name) in (
+            (room, ann, check_read, "read"), (vox, room, check_up, "spread"),
+            (room, q_sub, check_sub, "room check"),
+            *((s_vox, q, c, f"scan spread, chunk {i}") for i, (q, c)
+              in enumerate(zip(s_chunks, checks_scan)))):
         ms = cuda_ms(lambda: nn1_cuda(db, q), reps=3)
         bound_ms, bound_by = nn1_bound_ms(len(db), len(q))
-        lib_ms = library_nn1_ms(db, q) if library else None
-        shapes.append({"shape": check["shape"], "ms": ms,
-                       "plain_ms": check["plain_ms"], "bound_ms": bound_ms,
-                       "bound_by": bound_by, "library_ms": lib_ms,
-                       "splits": nn1_plan(len(q), len(db))[0]})
+        shapes.append({
+            "path": name, "shape": f"db {len(db)} x queries {len(q)}",
+            "ms": ms, "plain_ms": check["plain_ms"],
+            "plain_rows": check.get("plain_rows", len(q)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_nn1_ms(db, q),
+            "splits": nn1_plan(len(q), len(db))[0]})
         print(f"[time] nn1 {json.dumps(shapes[-1])}", flush=True)
 
-    # ---- 10. result lines; the top-level numbers are the read shape's
-    # (1M x 1M, the largest launch of the path), library_ms null there
+    # ---- 11. result lines; the top-level numbers are the read shape's
+    # (1M x 1M, the largest launch of the room path)
     read = shapes[0]
     kernels = [{
         "name": "nn1",
@@ -488,6 +730,7 @@ def main() -> int:
         "source": "superpoint_graph_tpu_torch/csrc/nn1.cu",
         "replaces": "superpoint_graph_tpu/ops/nn1_pallas.py:27",
         "launches": launches,
+        "launches_by_path": {"room": launches, "scan": scan_launches},
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         **{k: read[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "shape")},

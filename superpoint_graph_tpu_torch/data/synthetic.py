@@ -128,3 +128,100 @@ def write_s3dis_room(room_dir: Path, rng: np.random.RandomState,
                    fmt="%.4f")
     s3dis = np.array([S3DIS_LABELS[c] for c in CLASS_NAMES])
     return room_file, s3dis[labels], len(starts)
+
+
+def _big_scene_parts(n_points: int, seed: int):
+    """The rooms of `big_scene_labeled`, in its order and from the same
+    generator draws, with their colours: (xyz, rgb, labels, objects) lists."""
+    rng = np.random.RandomState(seed)
+    per_room = 250_000
+    n_rooms = max(1, n_points // per_room)
+    side = int(np.ceil(np.sqrt(n_rooms)))
+    parts = ([], [], [], [])
+    obj_base = 0
+    for r in range(n_rooms):
+        xyz, rgb, lab, obj = synthetic_room(
+            rng, n_points=min(per_room, n_points - r * per_room))
+        off = np.array([(r % side) * 4.5, (r // side) * 3.5, 0.0], np.float32)
+        for part, a in zip(parts, (xyz + off, rgb, lab, obj + obj_base)):
+            part.append(a)
+        obj_base += int(obj.max()) + 1
+    return parts
+
+
+def big_scene_labeled(n_points: int, seed: int = 0):
+    """A Semantic3D-scale synthetic scan: a grid of `synthetic_room` tiles
+    of 250,000 points, ~n_points in all. Returns (xyz f32, labels i32,
+    objects i32, instance ids offset per tile). The port's copy of the JAX
+    package's generator (superpoint_graph_tpu/data/synthetic.py:152-185)."""
+    xyz, _, lab, obj = _big_scene_parts(n_points, seed)
+    return (np.concatenate(xyz).astype(np.float32),
+            np.concatenate(lab).astype(np.int32),
+            np.concatenate(obj).astype(np.int32))
+
+
+def big_scene(n_points: int, seed: int = 0) -> np.ndarray:
+    """The xyz of `big_scene_labeled`."""
+    return big_scene_labeled(n_points, seed)[0]
+
+
+# Semantic3D class (1..8; 0 is unlabelled) each generator class is written
+# under: floor -> man-made terrain, ceiling and wall -> buildings, table ->
+# cars, clutter -> low vegetation, beam -> hard scape
+SEMANTIC3D_OF_CLASS = np.array([1, 5, 5, 8, 4, 6], np.uint8)
+
+
+def write_semantic3d_scan(path: Path, n_points: int, seed: int = 0):
+    """`path` (`x y z intensity r g b` rows) and its `.labels` sibling (one
+    Semantic3D class a row) of the `big_scene_labeled` scan, with the tiles'
+    colours and an intensity drawn from a RandomState(seed). Returns
+    (labels file, the class of every row)."""
+    xyz, rgb, lab, _ = (np.concatenate(p) for p in _big_scene_parts(
+        n_points, seed))
+    intensity = np.random.RandomState(seed).randint(-2048, 2048, len(xyz))
+    cls = SEMANTIC3D_OF_CLASS[lab]
+    path = Path(path)
+    _write_rows(path, [(xyz, 4, 3), (intensity, 4, 0), (rgb, 3, 0)])
+    labels_path = path.with_suffix(".labels")
+    _write_rows(labels_path, [(cls, 1, 0)])
+    return labels_path, cls
+
+
+def _fixed_width(a: np.ndarray, int_digits: int, frac_digits: int):
+    """The numbers of `a` [n, c] as fixed-width ASCII fields [n, c, width]:
+    a sign ('-' or '0'), `int_digits` zero-padded integer digits, and a
+    point and `frac_digits` rounded decimals when frac_digits > 0."""
+    v = np.rint(np.abs(a.astype(np.float64)) * 10.0 ** frac_digits).astype(
+        np.int64)
+    if int(v.max(initial=0)) >= 10 ** (int_digits + frac_digits):
+        raise ValueError(f"a value needs more than {int_digits} digits")
+    digits = []
+    for _ in range(int_digits + frac_digits):
+        v, d = np.divmod(v, 10)
+        digits.append(d)
+    chars = [np.where(a < 0, ord("-"), ord("0"))]
+    chars += [digits[i] + ord("0") for i in range(int_digits + frac_digits - 1,
+                                                   frac_digits - 1, -1)]
+    if frac_digits:
+        chars.append(np.full(a.shape, ord(".")))
+        chars += [digits[i] + ord("0") for i in range(frac_digits - 1, -1, -1)]
+    return np.stack(chars, -1).astype(np.uint8)
+
+
+def _write_rows(path: Path, cols, block: int = 1 << 20):
+    """Space-separated text rows of the [n] or [n, c] arrays in `cols`,
+    each with its (integer digits, decimals) for `_fixed_width`, written in
+    blocks of `block` rows by numpy alone (np.savetxt formats row by row in
+    Python, ~1 minute for the smoke's 8e6 rows)."""
+    cols = [(np.asarray(a).reshape(len(a), -1), i, f) for a, i, f in cols]
+    n = len(cols[0][0])
+    with open(path, "wb") as fh:
+        for s in range(0, n, block):
+            rows = []
+            for a, i, f in cols:
+                fld = _fixed_width(a[s:s + block], i, f)
+                sep = np.full(fld.shape[:2] + (1,), ord(" "), np.uint8)
+                rows.append(np.concatenate([fld, sep], 2).reshape(len(fld), -1))
+            rows = np.concatenate(rows, 1)
+            rows[:, -1] = ord("\n")
+            fh.write(rows.tobytes())

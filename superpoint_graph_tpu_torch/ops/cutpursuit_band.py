@@ -316,11 +316,41 @@ def jax_pad_rows(n: int, host_arrays: bool = False) -> int:
     return (1 << int(np.ceil(np.log2(max(blocks, 2))))) * b - n
 
 
-def edge_weights_device(d2: torch.Tensor, lam: float) -> torch.Tensor:
-    """w = 1 / (lam + d / mean(d)) from squared kNN distances, the mean over
-    all (real) edges (partition.py:175; the JAX `_prep_band_device`)."""
+def edge_weights_device(d2: torch.Tensor, lam: float,
+                        dmean: torch.Tensor | None = None) -> torch.Tensor:
+    """w = 1 / (lam + d / mean(d)) from squared kNN distances (partition.py:
+    175; the JAX `_prep_band_device`). The mean is over all the given
+    (real) edges unless `dmean` gives it (the chunked path's global mean)."""
     d0 = torch.sqrt(torch.clamp(d2, min=0.0))
-    return 1.0 / (lam + d0 / torch.clamp(d0.mean(), min=1e-12))
+    if dmean is None:
+        dmean = d0.mean()
+    return 1.0 / (lam + d0 / torch.clamp(dmean, min=1e-12))
+
+
+def prep_chunk(f, idx_adj, d2_adj, perm, inv, x0: int, x1: int, dmean,
+               lam: float):
+    """One window of the chunked giant-cloud solve (the JAX
+    `_prep_band_chunk`, cutpursuit_band.py:684-759, in CSR form): rows
+    perm[x0:x1] of the global Morton order, their features, and the kNN
+    edges with both ends inside the window (the others are dropped, to be
+    healed by the global merge), weighted with the GLOBAL mean distance
+    `dmean`. f [n, d], idx_adj / d2_adj [n, k] in input order; inv the
+    inverse of perm.
+
+    Returns (f_rows [x1 - x0, d], (src, tgt, w) the symmetrised list in
+    window positions sorted by source for `solve`, (esrc, etgt, ew) the
+    directed in-window list for the per-chunk merge)."""
+    rows = perm[x0:x1]
+    n_ext = x1 - x0
+    k = idx_adj.shape[1]
+    tgt0 = (inv[idx_adj[rows]] - x0).reshape(-1)
+    w0 = edge_weights_device(d2_adj[rows].reshape(-1), lam, dmean)
+    src0 = torch.arange(n_ext, device=f.device).repeat_interleave(k)
+    ok = (tgt0 >= 0) & (tgt0 < n_ext)
+    esrc, etgt, ew = src0[ok], tgt0[ok], w0[ok]
+    return (f[rows], symmetric_edges(
+        esrc, etgt, ew, torch.arange(n_ext, device=f.device)),
+        (esrc, etgt, ew))
 
 
 def cutpursuit_band_device(f_dev, idx_adj_dev, d2_adj_dev, xyz, n: int,

@@ -13,10 +13,10 @@ Cut pursuit (`PartitionConfig.cp_backend`):
   them on `device` and only the labels come back, then the host merge step
   (`_cutpursuit_device_path`). The JAX package feeds clouds below 16,384
   voxels to the same solver from host arrays instead (`cutpursuit_band`),
-  for its band's executables; here one path serves every size. Above
-  CHUNKED_CP_THRESHOLD voxels the JAX package switches to its chunked
-  giant-cloud path, which is not ported yet (ROADMAP queue 1 item 5): the
-  device backend raises there.
+  for its band's executables; here one path serves every size up to
+  CHUNKED_CP_THRESHOLD pruned voxels. Above it the cloud goes to the
+  chunked giant-cloud path, `pipeline_big.partition_cloud_big` (as the JAX
+  package's `partition_cloud` does), whose result has the same contract.
 - "exact": the host max-flow oracle (`ops/cutpursuit.py`).
 """
 from __future__ import annotations
@@ -37,10 +37,11 @@ from .ops.cutpursuit import cutpursuit as cutpursuit_exact
 from .ops.cutpursuit import merge_regions
 from .ops.cutpursuit_band import cutpursuit_band_device
 from .ops.geof import compute_geof
+from . import pipeline_big
 from .ops.knn import compute_graph_nn_2
+from .pipeline_big import CHUNKED_CP_THRESHOLD
 
 CP_BACKENDS = ("device", "exact")
-CHUNKED_CP_THRESHOLD = 1 << 19  # superpoint_graph_tpu/pipeline_big.py:51
 
 
 @dataclasses.dataclass
@@ -151,9 +152,9 @@ def _cutpursuit_device_path(xyz, rgb, graph_nn, dev, cfg: PartitionConfig):
     return group_components(in_comp), in_comp.astype(np.int32), times
 
 
-def _features_stage(xyz, rgb, labels, objects, n_labels, cfg, device):
-    """Prune, then features, keeping the device tables for the device
-    solver. Returns (xyz, rgb, labels, graph_nn, geof, dev or None)."""
+def prune_stage(xyz, rgb, labels, objects, n_labels, cfg, device):
+    """The voxel prune at cfg.voxel_width (none at 0): (xyz, rgb, labels
+    histograms)."""
     if cfg.voxel_width > 0:
         n_obj = (int(objects.max()) + 1
                  if objects is not None and np.size(objects) else 0)
@@ -162,15 +163,32 @@ def _features_stage(xyz, rgb, labels, objects, n_labels, cfg, device):
             rgb if rgb is not None else np.zeros((len(xyz), 3), np.uint8),
             labels, objects, n_labels, n_obj, device=device,
         )
+    return xyz, rgb, labels
+
+
+def _features_stage(xyz, rgb, labels, objects, n_labels, cfg, device):
+    """Prune, then features, keeping the device tables for the device
+    solver. Returns (xyz, rgb, labels, graph_nn, geof, dev or None); a
+    giant cloud (device solver, above CHUNKED_CP_THRESHOLD voxels) comes
+    back pruned with graph_nn None, for `_big`."""
+    xyz, rgb, labels = prune_stage(xyz, rgb, labels, objects, n_labels, cfg,
+                                   device)
     if cfg.cp_backend == "device" and len(xyz) > CHUNKED_CP_THRESHOLD:
-        raise NotImplementedError(
-            f"{len(xyz)} voxels > CHUNKED_CP_THRESHOLD={CHUNKED_CP_THRESHOLD}:"
-            " the chunked giant-cloud cut pursuit is not ported yet (ROADMAP "
-            "queue 1 item 5)")
+        return xyz, rgb, labels, None, None, None
     graph_nn, geof, *dev = partition_features(
         np.asarray(xyz, np.float32), cfg, device=device,
         return_device=cfg.cp_backend == "device")
     return xyz, rgb, labels, graph_nn, geof, (dev[0] if dev else None)
+
+
+def _big(xyz, rgb, labels, n_labels, cfg, device, prune_s: float):
+    """The pruned giant cloud through `partition_cloud_big` (JAX
+    pipeline.py:190-198); the prune's seconds join its features time."""
+    res = pipeline_big.partition_cloud_big(xyz, rgb, labels, None, n_labels,
+                              dataclasses.replace(cfg, voxel_width=0.0),
+                              device=device)
+    res.times["features"] += prune_s
+    return res
 
 
 def _partition_stage(xyz, rgb, graph_nn, geof, dev, cfg):
@@ -227,12 +245,17 @@ def partition_cloud(
     """Prune, features, cut pursuit and superpoint graph of one cloud; the
     device stages run on `device` (default: the card). `times` holds the
     three buckets, and for the device solver "partition.solve" (the device
-    solve, labels fetched) and "partition.merge" (host merge step)."""
+    solve, labels fetched) and "partition.merge" (host merge step). Above
+    CHUNKED_CP_THRESHOLD pruned voxels (device solver) the result is
+    `pipeline_big.partition_cloud_big`'s, with its times."""
     _check_backend(cfg)
     device = card_unless(device)
     t0 = time.perf_counter()
     xyz, rgb, labels, graph_nn, geof, dev = _features_stage(
         xyz, rgb, labels, objects, n_labels, cfg, device)
+    if graph_nn is None:
+        return _big(xyz, rgb, labels, n_labels, cfg, device,
+                    time.perf_counter() - t0)
     times = {"features": time.perf_counter() - t0}
     t0 = time.perf_counter()
     components, in_component, sub = _partition_stage(
@@ -270,6 +293,10 @@ def partition_clouds(clouds, cfg: PartitionConfig = PartitionConfig(),
             xyz, rgb, labels, graph_nn, geof, dev = fut.result()
             if i + 1 < len(clouds):
                 fut = pool.submit(stage_a, clouds[i + 1])
+            if graph_nn is None:
+                results.append(_big(xyz, rgb, labels, n_labels, cfg, device,
+                                    0.0))
+                continue
             t0 = time.perf_counter()
             components, in_component, sub = _partition_stage(
                 xyz, rgb, graph_nn, geof, dev, cfg)

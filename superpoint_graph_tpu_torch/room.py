@@ -44,6 +44,20 @@ class RoomLabels:
     times: dict           # seconds per stage
 
 
+def stage_timer(device, times: dict):
+    """stage(name, fn, *args, **kw): fn's result, its wall seconds stored
+    in times[name], synchronised with the card when `device` is CUDA."""
+    def stage(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times[name] = time.perf_counter() - t0
+        return out
+
+    return stage
+
+
 def label_room(raw_path: str, model, device=None,
                cfg: PartitionConfig = PartitionConfig(spg_adjacency="knn"),
                loader_cfg: LoaderConfig = LoaderConfig(),
@@ -54,15 +68,7 @@ def label_room(raw_path: str, model, device=None,
     it was trained with (None: features unscaled)."""
     device = card_unless(device)
     times = {}
-
-    def stage(name, fn, *args, **kw):
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        times[name] = time.perf_counter() - t0
-        return out
-
+    stage = stage_timer(device, times)
     xyz, rgb, labels, objects = stage(
         "read_s3dis", read_s3dis_format, raw_path, device=device)
     part = stage("partition_cloud", partition_cloud, xyz, rgb, labels,

@@ -148,3 +148,43 @@ def test_segment_sums_on_card_repeat_bit_for_bit(dev):
     first = segs.sum(data)
     for _ in range(3):
         assert torch.equal(_Segments(seg, 1000).sum(data), first)
+
+
+# ---------------------------------------------------------------- giant path
+def test_knn_bigcloud_on_card_equals_cpu(dev):
+    """The sorted-cell kNN on the card gives the CPU's table, indices and
+    squared distances bit for bit (exact re-rank in the same elementwise
+    form on both)."""
+    from superpoint_graph_tpu_torch.data.synthetic import synthetic_room
+    from superpoint_graph_tpu_torch.ops.knn import knn_bigcloud
+
+    xyz, _, _, _ = synthetic_room(np.random.RandomState(0), 60_000)
+    outliers = np.random.RandomState(1).rand(30, 3).astype(np.float32) * 40
+    xyz = torch.from_numpy(np.concatenate([xyz, outliers + 10]))
+    got_i, got_d, info = knn_bigcloud(xyz.to(dev), 45)
+    want_i, want_d, _ = knn_bigcloud(xyz, 45)
+    assert info["levels"][0]["bad"] > 0
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_d.cpu(), want_d)
+
+
+def test_chunked_partition_on_card_repeats_bit_for_bit(dev):
+    """The chunked device cut pursuit with its merges and heal gives the
+    same labels on every call on the card (fixed-order sums throughout),
+    with several windows and no capped CC call."""
+    from superpoint_graph_tpu_torch import pipeline_big
+    from superpoint_graph_tpu_torch.data.synthetic import synthetic_room
+    from superpoint_graph_tpu_torch.ops.geof import compute_geof
+    from superpoint_graph_tpu_torch.ops.knn import knn_bigcloud
+
+    xyz, _, _, _ = synthetic_room(np.random.RandomState(2), 60_000)
+    xyz = torch.from_numpy(xyz).to(dev)
+    idx, d2, _ = knn_bigcloud(xyz, 20)
+    f = compute_geof(xyz, idx)
+    runs = [pipeline_big.chunked_cutpursuit_device(
+        f, idx[:, :10], d2[:, :10], xyz, 0.05, chunk_points=16_384)[1]
+        for _ in range(3)]
+    assert pipeline_big.LAST_CP_STATS["n_chunks"] >= 4
+    assert pipeline_big.LAST_CP_STATS["cc_capped"] == 0
+    for r in runs[1:]:
+        np.testing.assert_array_equal(r, runs[0])

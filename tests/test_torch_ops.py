@@ -185,9 +185,18 @@ def test_compute_graph_nn_2_matches_jax(rng):
 
 
 def test_knn_above_threshold_raises(monkeypatch):
+    """The brute-force knn refuses clouds above BIGCLOUD_THRESHOLD (O(n^2));
+    compute_graph_nn_2 takes them through knn_bigcloud instead, with the
+    same exact graph."""
     monkeypatch.setattr(knn_t, "BIGCLOUD_THRESHOLD", 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        knn_t.knn(torch.rand(20, 3), 3)
+    xyz = torch.rand(20, 3)
+    with pytest.raises(ValueError, match="knn_bigcloud"):
+        knn_t.knn(xyz, 3)
+    graph, nb = knn_t.compute_graph_nn_2(xyz.numpy(), 2, 3, device="cpu")
+    want_i, want_d = knn_t.knn_vs_db(xyz, torch.arange(20), 3)
+    assert torch.equal(nb, want_i)
+    np.testing.assert_array_equal(graph["target"],
+                                  want_i[:, :2].reshape(-1).numpy())
 
 
 # ---------------------------------------------------------------- geof

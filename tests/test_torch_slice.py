@@ -286,12 +286,14 @@ def test_label_room_default_config_cpu(room, device_partitions):
 
 
 @pytest.mark.parametrize("case", ["unknown backend", "giant cloud"])
-def test_partition_rejects_unported_backends(case):
+def test_partition_rejects_unported_backends(case, monkeypatch):
     """An unknown cp_backend raises ValueError; with the device solver, a
-    cloud above CHUNKED_CP_THRESHOLD voxels (the JAX package's chunked
-    giant-cloud path, not ported yet) raises NotImplementedError."""
-    from superpoint_graph_tpu_torch.pipeline import (CHUNKED_CP_THRESHOLD,
-                                                     PartitionConfig,
+    cloud above CHUNKED_CP_THRESHOLD voxels is no longer refused: it goes
+    through the chunked giant-cloud path (`pipeline_big`), whose stats
+    then stand in the result's times (tests/test_torch_pipeline_big.py
+    holds that path to the JAX one)."""
+    from superpoint_graph_tpu_torch import pipeline
+    from superpoint_graph_tpu_torch.pipeline import (PartitionConfig,
                                                      partition_cloud)
 
     if case == "unknown backend":
@@ -300,10 +302,13 @@ def test_partition_rejects_unported_backends(case):
                 partition_cloud(np.zeros((10, 3), np.float32),
                                 cfg=PartitionConfig(cp_backend=backend))
         return
-    xyz = np.random.RandomState(0).rand(CHUNKED_CP_THRESHOLD + 1, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        partition_cloud(xyz.astype(np.float32), device="cpu",
-                        cfg=PartitionConfig(voxel_width=0.0))
+    monkeypatch.setattr(pipeline, "CHUNKED_CP_THRESHOLD", 500)
+    xyz = np.random.RandomState(0).rand(600, 3).astype(np.float32)
+    res = partition_cloud(xyz, device="cpu", cfg=PartitionConfig(
+        voxel_width=0.0, k_nn_geof=10, k_nn_adj=5, spg_adjacency="knn"))
+    assert res.times["cp_info"]["n"] == 600
+    assert res.in_component.shape == (600,)
+    assert len(res.components) == res.in_component.max() + 1
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -343,6 +348,10 @@ def _entry_point_calls():
                                                      partition_clouds,
                                                      partition_features)
     from superpoint_graph_tpu_torch.room import label_room
+    from superpoint_graph_tpu_torch import pipeline_big, scan
+    from superpoint_graph_tpu_torch.data import provider
+    from superpoint_graph_tpu_torch.graph.spg_device import (
+        compute_sp_graph_device)
 
     xyz = np.random.RandomState(0).rand(50, 3).astype(np.float32)
     edges = np.arange(49), np.arange(1, 50)
@@ -364,13 +373,27 @@ def _entry_point_calls():
                                                    np.ones(49), 0.1),
         "collate_spg": lambda: collate_spg([], LoaderConfig(), 13, 14),
         "label_room": lambda: label_room("room.txt", None),
+        "read_semantic3d_format": lambda: provider.read_semantic3d_format(
+            "scan.txt", 8, "scan.labels", 0.05, 1000),
+        "interpolate_labels_batch": lambda: provider.interpolate_labels_batch(
+            "scan.txt", xyz, np.zeros(50, int), 1000),
+        "compute_sp_graph_device": lambda: compute_sp_graph_device(
+            xyz, 0.0, np.zeros(50, int), None, 0, np.zeros((50, 2), int)),
+        "partition_cloud_big": lambda: pipeline_big.partition_cloud_big(xyz),
+        "chunked_cutpursuit": lambda: pipeline_big.chunked_cutpursuit(
+            xyz, xyz, *edges, np.ones(49), 0.1),
+        "scan_batch": lambda: scan.scan_batch(None, 8),
+        "label_scan": lambda: scan.label_scan("scan.txt", None),
     }
 
 
 @pytest.mark.parametrize("name", [
     "read_s3dis_format", "interpolate_labels", "prune", "compute_graph_nn_2",
     "compute_sp_graph", "partition_features", "partition_cloud",
-    "partition_clouds", "cutpursuit_band", "collate_spg", "label_room"])
+    "partition_clouds", "cutpursuit_band", "collate_spg", "label_room",
+    "read_semantic3d_format", "interpolate_labels_batch",
+    "compute_sp_graph_device", "partition_cloud_big", "chunked_cutpursuit",
+    "scan_batch", "label_scan"])
 def test_entry_points_default_to_card(name):
     """Called without `device`, every entry point asks for the card, and
     raises where there is none rather than run on the CPU."""
@@ -389,7 +412,11 @@ def test_port_imports_no_jax():
         "import superpoint_graph_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__,\n"
         "                                               p.__name__ + '.')]\n"
-        "assert 'superpoint_graph_tpu_torch.ops.cutpursuit_band' in names\n"
+        "assert {'superpoint_graph_tpu_torch.ops.cutpursuit_band',\n"
+        "        'superpoint_graph_tpu_torch.ops.merge_device',\n"
+        "        'superpoint_graph_tpu_torch.graph.spg_device',\n"
+        "        'superpoint_graph_tpu_torch.pipeline_big',\n"
+        "        'superpoint_graph_tpu_torch.scan'} <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
