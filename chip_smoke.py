@@ -36,7 +36,30 @@ one NVIDIA GPU.
    bit-identical (voxels, kNN, geof, the solver's labels, in_component, and
    equal to the slice's). The warm solve's time, and the region accept's
    quality for reference.
-9. Scan path: a synthetic Semantic3D station of 8,000,000 raw points
+9. Training path: three more synthetic S3DIS rooms of 300,000 raw points
+   (RandomState(SEED + i)) through the partition CLI's per-file function
+   at its defaults (reader with nn1, prune, kNN, geof, the device cut
+   pursuit, Delaunay SPG), the room phase's partition as the fourth; SPG
+   entries and parsed rows in memory (no h5py on the card's machine); a
+   cvfold of 3 training rooms and 1 test room; the flagship built by the
+   training CLI's `build` at the S3DIS recipe's flags; 2 training epochs,
+   1 test epoch and `eval_final` (2 samplings) through its `run_epoch`;
+   model.ckpt saved and reloaded. Checks: each training room's reader
+   labels (from its partition_file run) against the generator's, and nn1
+   at that room's read shape against nn1_plain on 65,536 sampled queries;
+   (a) finite losses; the reloaded model's eval logits equal (index_add in
+   its deterministic mode); (b) one step's loss, gradients and running
+   statistics on the card against the CPU, memory monger on, within
+   learn/train_check.py's TRAIN_TOL (where a ReLU or a PointNet max-pool
+   takes another branch on the CPU than on the card, each such element
+   must be a near-tie, and the CPU's step is run again on the card's
+   branches; printed); (c) the monger on against off on the card, the
+   same, running statistics equal; (d) 30 steps on one batch bring the
+   loss below OVERFIT_RATIO of its first. Printed: train steps/s at batch
+   2 (CUDA events, 20 steps after 3 warm-ups), the host's load + collate
+   seconds a batch, superpoints a batch, the phase's peak allocated
+   memory; all under "train" in the JSON line.
+10. Scan path: a synthetic Semantic3D station of 8,000,000 raw points
    (`big_scene_labeled`, x y z intensity r g b + .labels) written as text
    (its time printed apart), then `scan.label_scan` cold and warm:
    read_semantic3d_format (chunks of 5e6 rows pruned at 0.05 m) ->
@@ -55,7 +78,7 @@ one NVIDIA GPU.
    the path uses) equal to nn1_plain on 65,536 sampled rows of the chunk,
    and the path's labels of those rows equal to the voxel classes the
    plain nn1 picks.
-10. Timing at the nn1 shapes, with CUDA events: the kernel (mean of 3
+11. Timing at the nn1 shapes, with CUDA events: the kernel (mean of 3
    calls after a warm-up), the plain version (one call on the queries it
    was checked on: all of them, or the sampled rows), one PyTorch call of
    the same function (torch.cdist in its matrix-product mode + argmin, in
@@ -63,9 +86,10 @@ one NVIDIA GPU.
    flops a pair, the 3 FMAs of the expanded form, at 67 TFLOP/s, or the
    bytes at 3.35 TB/s if larger). The direct-mode torch.cdist yardstick
    (~21 minutes at 1M x 1M) lives in tools/nn1_cdist_direct.py.
-11. One JSON line with the kernel table (top-level numbers at the read
-   shape, 1M x 1M; every shape under "shapes"; launches of each path), the
-   card line, and last {"ok": true, "device": {...}}.
+12. One JSON line with the kernel table (top-level numbers at the read
+   shape, 1M x 1M; every shape under "shapes"; launches of each path) and
+   the training phase's numbers, the card line, and last
+   {"ok": true, "device": {...}}.
 
 Exits non-zero on any failure, when no CUDA device is visible, or when run
 outside a checkout of the repository. Usage, from the repository root:
@@ -73,6 +97,7 @@ outside a checkout of the repository. Usage, from the repository root:
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib.util
 import json
@@ -555,6 +580,247 @@ def scan_phase(dev, tmp):
     return launches, checks, (xyz, chunks)
 
 
+# the training phase: three more synthetic rooms partitioned by the
+# partition CLI's per-file function at its defaults, the flagship trained by
+# the training CLI's functions at the S3DIS recipe's flags (docs/DATASETS.md);
+# checks (b) and (c) by learn/train_check.py, within its TRAIN_TOL
+TRAIN_ROOMS, TRAIN_ROOM_POINTS = 3, 300_000
+TRAIN_RECIPE = ["--dataset", "s3dis", "--model_config", "gru_10_0,f_13",
+                "--ptn_nfeat_stn", "14", "--pc_attribs", "xyzrgbelpsvXYZ",
+                "--lr_steps", "[275,320]", "--seed", str(SEED)]
+# steps on one fixed batch, and the share of the first loss the last must
+# fall below; steps timed for steps/s after the warm-ups
+OVERFIT_STEPS, OVERFIT_RATIO = 30, 0.5
+TIMED_STEPS, WARM_STEPS = 20, 3
+
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """Within: `module.<name>` runs as it is and appends each call's result
+    to the yielded list."""
+    calls, orig = [], getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(orig(*args, **kwargs))
+        return calls[-1]
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def overfit(trainer, batch, steps=OVERFIT_STEPS):
+    """Losses of `steps` train_steps on one batch."""
+    return [float(trainer.train_step(batch)[0]) for _ in range(steps)]
+
+
+def train_phase(dev, tmp, room_part, points=TRAIN_ROOM_POINTS):
+    """The training path on `dev` (phase 9; tools/torch_train_phase_cpu.py
+    runs it on the CPU with smaller rooms) on TRAIN_ROOMS rooms of `points`
+    raw points: returns (nn1 launches of the partition CLI's runs, the nn1
+    checks at its rooms' read shapes, the phase's numbers)."""
+    import torch
+
+    from superpoint_graph_tpu_torch.cli import partition as cli_partition
+    from superpoint_graph_tpu_torch.cli import train as cli_train
+    from superpoint_graph_tpu_torch.data import provider
+    from superpoint_graph_tpu_torch.data.datasets import get_info
+    from superpoint_graph_tpu_torch.data.loader import (collate_spg,
+                                                        load_spg_sample)
+    from superpoint_graph_tpu_torch.data.spg_io import scaler01
+    from superpoint_graph_tpu_torch.data.synthetic import write_s3dis_room
+    from superpoint_graph_tpu_torch.learn import checkpoint as ckpt
+    from superpoint_graph_tpu_torch.learn.train_check import (
+        bn_fed_biases, card_vs_cpu, compare_steps, draw_batches, step_record,
+        trainer_factory, training_rooms)
+    from superpoint_graph_tpu_torch.ops.nn1 import nn1
+    from superpoint_graph_tpu_torch.room import EDGE_ATTRIBS
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    root = Path(tmp)
+    paths, want_labels = {}, {}
+    for i in range(1, TRAIN_ROOMS + 1):
+        name = f"Area_1/room_{i}"
+        paths[name], want_labels[name], _ = write_s3dis_room(
+            root / "data" / "Area_1" / f"room_{i}",
+            np.random.RandomState(SEED + i), points)
+    p_args = cli_partition.parse_args(["--ROOT_PATH", str(root)])
+    parts, part_s = {}, {}
+    nn1.launches = 0
+    with recorded(provider, "read_s3dis_format") as reads:
+        for name, path in paths.items():
+            t0 = time.perf_counter()
+            parts[name] = cli_partition.partition_file(str(path), p_args, dev)
+            part_s[name] = time.perf_counter() - t0
+    launches = nn1.launches
+    parts["Area_2/room_0"] = room_part
+    for name, p in parts.items():
+        print(f"[train] {name}: {len(p.xyz)} voxels, {len(p.components)} "
+              f"superpoints, {len(p.graph_sp['source'])} superedges"
+              + (f", partition_file {part_s[name]:.3f} s" if name in part_s
+                 else " (the room phase's partition)"), flush=True)
+    print(f"[train] nn1 launches in partition_file: {launches}", flush=True)
+    # the reader's output in each partition_file run: its labels against
+    # the generator's, and the kernel at that room's read shape (the room's
+    # points against its annotation points) against the plain version on
+    # N_CHECK sampled queries
+    if len(reads) != len(paths):
+        raise AssertionError(f"{len(reads)} reader calls for {len(paths)} "
+                             "rooms")
+    checks, read_agree = [], {}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for (name, path), (xyz, _, labels, _) in zip(paths.items(), reads):
+        agree = read_agree[name] = float((labels == want_labels[name]).mean())
+        print(f"[check] {name}: reader labels equal to the generator's: "
+              f"{agree:.6f}", flush=True)
+        if agree < 0.9999:
+            raise AssertionError(f"{name}: read_s3dis_format labels disagree "
+                                 "with the room")
+        if not on_card:
+            continue
+        ann = torch.as_tensor(np.concatenate([
+            provider.read_rows(str(f))[:, :3]
+            for f in sorted(path.parent.glob("Annotations/*.txt"))
+        ]).astype(np.float32), device=dev)
+        pick = torch.randint(0, len(ann), (N_CHECK,), device=dev, generator=g)
+        checks.append(compare_nn1(torch.as_tensor(xyz, device=dev), ann,
+                                  f"{name} read shape", rows=pick)[0])
+
+    entries, rows = training_rooms(parts, EDGE_ATTRIBS)
+    train_names = [n for n in entries if n.startswith("Area_1")]
+    test_names = ["Area_2/room_0"]
+    trainlist, testlist, _, scaler = scaler01(
+        [entries[n] for n in train_names], [entries[n] for n in test_names])
+    args = cli_train.parse_args(TRAIN_RECIPE)
+    args.test_multisamp_n = 2
+    dbinfo = get_info("s3dis", str(root), EDGE_ATTRIBS, args.pc_attribs)
+    _, trainer, loader_cfg, n_ch = cli_train.build(args, dbinfo, dev)
+    rng = np.random.RandomState(SEED)
+    epochs = []
+    for epoch in range(2):
+        trainer.set_epoch_lr(epoch)
+        loss, cm, info = cli_train.run_epoch(
+            trainer, trainlist, train_names, rows.__getitem__, loader_cfg,
+            n_ch, dbinfo, True, rng, args.batch_size)
+        epochs.append({"epoch": epoch, "loss": loss,
+                       "acc": 100 * cm.get_overall_accuracy(), **info})
+    te_loss, te_cm, te_info = cli_train.run_epoch(
+        trainer, testlist, test_names, rows.__getitem__, loader_cfg, n_ch,
+        dbinfo, False, rng, 1)
+    epochs.append({"test_loss": te_loss,
+                   "oacc": 100 * te_cm.get_overall_accuracy(), **te_info})
+    preds, final_cm = cli_train.eval_final(
+        args, trainer, testlist, test_names, rows.__getitem__, loader_cfg,
+        n_ch, dbinfo)
+    for e in epochs:
+        print(f"[train] epoch {json.dumps(e)}", flush=True)
+    final = {"oacc": final_cm.get_overall_accuracy(),
+             "miou": final_cm.get_average_intersection_union(),
+             "superpoints": len(preds["Area_2/room_0"])}
+    print(f"[train] eval_final (test_multisamp_n 2): {json.dumps(final)}")
+    # (a) every loss finite
+    losses = [e.get("loss", e.get("test_loss")) for e in epochs]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"a training loss is not finite: {losses}")
+
+    # model.ckpt saved and reloaded: the architecture from its own args,
+    # eval logits equal (index_add in its deterministic mode for both)
+    ck = str(root / "model.ckpt")
+    ckpt.save_checkpoint(ck, trainer.state_dict(), 2,
+                         vars(args) | {"lr_steps": list(args.lr_steps)},
+                         scaler.state_dict())
+    b_args = cli_train.parse_args(TRAIN_RECIPE)
+    for k in cli_train.ARCH_KEYS:
+        setattr(b_args, k, ckpt.read_checkpoint_args(ck)[k])
+    _, reloaded, _, _ = cli_train.build(b_args, dbinfo, dev)
+    state, ck_epoch, _, _ = ckpt.load_checkpoint(ck, map_location=dev)
+    reloaded.load_state_dict(state)
+    test_batch = collate_spg(
+        [load_spg_sample(testlist[0], rows[test_names[0]], loader_cfg)],
+        loader_cfg, dbinfo.classes, n_ch, dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            same_logits = torch.equal(trainer.eval_step(test_batch)[1],
+                                      reloaded.eval_step(test_batch)[1])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[train] model.ckpt reloaded (epoch {ck_epoch}): eval logits "
+          f"equal {same_logits}", flush=True)
+    if not same_logits or ck_epoch != 2:
+        raise AssertionError("the reloaded checkpoint's logits differ")
+
+    batches, load_s = draw_batches(trainlist, train_names, rows, loader_cfg,
+                                   dbinfo, n_ch, rng, args.batch_size, dev)
+    n_sp = [int(b.node_mask.sum()) for b in batches]
+
+    # (b) card against CPU, one step's forward and backward from the same
+    # weights, memory monger on
+    zero = bn_fed_biases(trainer.model)
+    fresh = trainer_factory(args, dbinfo, trainer.model.state_dict())
+    check_b = card_vs_cpu(fresh, batches[0], zero)
+    # (c) memory monger on against off, on the card
+    on_dev = step_record(fresh(dev), batches[0])
+    off_dev = step_record(fresh(dev, monger=False), batches[0])
+    check_c = compare_steps(on_dev, off_dev, "(c) monger on vs off, card",
+                            zero, exact_stats=True)
+    # (d) 30 steps on one batch
+    fit = overfit(fresh(dev), batches[0])
+    ratio = fit[-1] / fit[0]
+    print(f"[train] (d) {OVERFIT_STEPS} steps on one batch: loss "
+          f"{fit[0]:.4f} -> {fit[-1]:.4f} (x{ratio:.4f}, bound "
+          f"x{OVERFIT_RATIO})", flush=True)
+    if not (np.isfinite(fit).all() and ratio < OVERFIT_RATIO):
+        raise AssertionError(f"30 steps on one batch: loss x{ratio:.4f}")
+
+    # steps/s at batch 2: CUDA events over TIMED_STEPS after WARM_STEPS
+    timer = fresh(dev)
+    for i in range(WARM_STEPS):
+        timer.train_step(batches[i % len(batches)])
+    steps = lambda: [timer.train_step(batches[i % len(batches)])  # noqa: E731
+                     for i in range(TIMED_STEPS)]
+    if on_card:
+        _, ms = timed(steps)
+    else:  # the CPU check of tools/torch_train_phase_cpu.py: wall clock
+        t0 = time.perf_counter()
+        [float(loss) for loss, _ in steps()]
+        ms = (time.perf_counter() - t0) * 1e3
+    out = {
+        "train_steps_per_s": TIMED_STEPS / (ms / 1e3),
+        "step_ms": ms / TIMED_STEPS,
+        "batch_size": args.batch_size,
+        "host_load_collate_s_per_batch": float(np.mean(load_s)),
+        "superpoints_per_batch": float(np.mean(n_sp)),
+        "superpoints_per_batch_epochs": [e["superpoints_per_batch"]
+                                         for e in epochs[:2]],
+        "max_memory_allocated_gib": (
+            torch.cuda.max_memory_allocated(dev) / 2**30 if on_card
+            else None),
+        "epochs": epochs, "eval_final": final, "nn1_launches": launches,
+        "rooms": {n: {"voxels": len(p.xyz), "superpoints": len(p.components),
+                      "superedges": int(len(p.graph_sp["source"]))}
+                  for n, p in parts.items()},
+        "partition_file_s": part_s, "reader_label_agreement": read_agree,
+        "overfit_losses": [fit[0], fit[-1]],
+        "overfit_ratio": ratio, "card_vs_cpu": check_b,
+        "monger_on_vs_off": check_c,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    for k in ("train_steps_per_s", "step_ms", "host_load_collate_s_per_batch",
+              "superpoints_per_batch", "max_memory_allocated_gib", "phase_s"):
+        print(f"[train] {k}: {out[k]}")
+    sys.stdout.flush()
+    return launches, checks, out
+
+
 def main() -> int:
     if not (ROOT / "superpoint_graph_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -697,12 +963,18 @@ def main() -> int:
     quality_phase(r, cfg, solve_stats)
     run_to_run_phase(r, cfg, raw, dev)
 
-    # ---- 9. the scan path; only its own nn1 launches are counted
+    # ---- 9. the training path; only its own nn1 launches are counted
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, checks_train, train = train_phase(dev, tmp,
+                                                          r.partition)
+    checks += checks_train
+
+    # ---- 10. the scan path; only its own nn1 launches are counted
     with tempfile.TemporaryDirectory() as tmp:
         scan_launches, checks_scan, (s_vox, s_chunks) = scan_phase(dev, tmp)
     checks += checks_scan
 
-    # ---- 10. nn1 at its shapes: kernel, plain (on plain_rows sampled
+    # ---- 11. nn1 at its shapes: kernel, plain (on plain_rows sampled
     # queries where given), library, bound
     shapes = []
     for (db, q, check, name) in (
@@ -721,7 +993,7 @@ def main() -> int:
             "splits": nn1_plan(len(q), len(db))[0]})
         print(f"[time] nn1 {json.dumps(shapes[-1])}", flush=True)
 
-    # ---- 11. result lines; the top-level numbers are the read shape's
+    # ---- 12. result lines; the top-level numbers are the read shape's
     # (1M x 1M, the largest launch of the room path)
     read = shapes[0]
     kernels = [{
@@ -730,14 +1002,15 @@ def main() -> int:
         "source": "superpoint_graph_tpu_torch/csrc/nn1.cu",
         "replaces": "superpoint_graph_tpu/ops/nn1_pallas.py:27",
         "launches": launches,
-        "launches_by_path": {"room": launches, "scan": scan_launches},
+        "launches_by_path": {"room": launches, "train": train_launches,
+                             "scan": scan_launches},
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         **{k: read[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "shape")},
         "shapes": shapes,
         "ptxas": [line for line in ptxas.splitlines() if "Used" in line],
     }]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "train": train}))
     print(f"[card] {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
-"""Superpoint sampling and padded collation into an SpgBatch of torch tensors.
+"""Superpoint sampling, training-time augmentation and padded collation
+into an SpgBatch of torch tensors.
 
-Port of the inference half of superpoint_graph_tpu/data/loader.py
-(`LoaderConfig`, `pc_attrib_dims`, `select_channels`, `load_superpoint`, the
-eval branch of `load_spg_sample`, `collate_spg`; reference learning/spg.py),
-whose module imports h5py and the flax model. Superpoint rows come from any
-mapping str(id) -> array (data/parsed.py::parsed_entries, or an open parsed
-h5 file). Training-time augmentation (graph subsampling, rotations, jitter)
-waits for the training port.
+Port of superpoint_graph_tpu/data/loader.py (reference learning/spg.py),
+whose module imports h5py and the flax model: `LoaderConfig`,
+`pc_attrib_dims`, `select_channels`, `augment_cloud`, `load_superpoint`,
+the graph subsampling (`random_neighborhoods`, `induced_subgraph`,
+`spg_subsample`), `load_spg_sample` and `collate_spg`. Superpoint rows come
+from any mapping str(id) -> array (data/parsed.py::parsed_entries, or an
+open parsed h5 file). The host code draws from the same RandomState calls
+in the same order as the JAX loader, so one seed gives the same sample bit
+for bit.
 """
 from __future__ import annotations
 
@@ -35,6 +38,13 @@ class LoaderConfig:
     ptn_minpts: int = 40
     pc_attribs: str = "xyzrgbelpsvXYZ"
     pc_xyznormalize: bool = True
+    pc_augm_scale: float = 0.0
+    pc_augm_rot: bool = True
+    pc_augm_mirror_prob: float = 0.0
+    pc_augm_jitter: bool = True
+    spg_augm_nneigh: int = 100
+    spg_augm_order: int = 3
+    spg_augm_hardcutoff: int = 512
     # padded capacities; batches are bucketed to multiples of these
     n_sp_bucket: int = 128
     n_edge_bucket: int = 512
@@ -70,17 +80,46 @@ def select_channels(P: np.ndarray, pc_attribs: str) -> np.ndarray:
     return np.concatenate(cols, axis=1)
 
 
+def augment_cloud(P: np.ndarray, cfg: LoaderConfig,
+                  rs: np.random.RandomState) -> np.ndarray:
+    """z-rotation, uniform scale and xy mirror of xyz, Gaussian jitter
+    (sigma 0.01, clipped at 0.05) on every channel (spg.py:239-258)."""
+    M = np.eye(3)
+    if cfg.pc_augm_scale > 1:
+        s = rs.uniform(1.0 / cfg.pc_augm_scale, cfg.pc_augm_scale)
+        M = s * M
+    if cfg.pc_augm_rot:
+        a = rs.uniform(0, 2 * math.pi)
+        c, s = math.cos(a), math.sin(a)
+        M = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]) @ M
+    if cfg.pc_augm_mirror_prob > 0:
+        if rs.rand() < cfg.pc_augm_mirror_prob / 2:
+            M = np.diag([-1.0, 1, 1]) @ M
+        if rs.rand() < cfg.pc_augm_mirror_prob / 2:
+            M = np.diag([1.0, -1, 1]) @ M
+    P = P.copy()
+    P[:, :3] = P[:, :3] @ M.T
+    if cfg.pc_augm_jitter:
+        sigma, clip = 0.01, 0.05
+        P = P + np.clip(sigma * rs.randn(*P.shape), -clip,
+                        clip).astype(np.float32)
+    return P.astype(np.float32)
+
+
 def load_superpoint(parsed: Mapping, sp_id: int, cfg: LoaderConfig,
-                    test_seed_offset: int = 0):
-    """One superpoint's rows sampled to exactly ptn_npts with
-    RandomState(sp_id + offset) (spg.py:198-236, test time). Returns
-    (P [npts, C], diameter) or (None, n) below ptn_minpts."""
+                    train: bool = False, test_seed_offset: int = 0,
+                    rs: np.random.RandomState | None = None):
+    """One superpoint's rows sampled to exactly ptn_npts (spg.py:198-236):
+    from `rs` in training, else from RandomState(sp_id + offset); augmented
+    in training. Returns (P [npts, C], diameter) or (None, n) below
+    ptn_minpts."""
     P = parsed[str(sp_id)]
     n = P.shape[0]
     if n < cfg.ptn_minpts:
         return None, n
     P = np.asarray(P[:], np.float32)
-    rs = np.random.RandomState(seed=sp_id + test_seed_offset)
+    if rs is None or not train:
+        rs = np.random.RandomState(seed=sp_id + test_seed_offset)
     if n > cfg.ptn_npts:
         P = P[rs.choice(n, cfg.ptn_npts), :]
     elif n < cfg.ptn_npts:
@@ -94,14 +133,96 @@ def load_superpoint(parsed: Mapping, sp_id: int, cfg: LoaderConfig,
         P[:, :3] = P[:, :3] - P[:, :3].mean(0, keepdims=True)
     if cfg.pc_attribs:
         P = select_channels(P, cfg.pc_attribs)
+    if train:
+        P = augment_cloud(P, cfg, rs)
     return P, np.float32(diameter)
 
 
+def _adjacency(n, edges):
+    import scipy.sparse as sp
+
+    if len(edges) == 0:
+        return sp.csr_matrix((n, n))
+    data = np.ones(len(edges) * 2)
+    rows = np.concatenate([edges[:, 0], edges[:, 1]])
+    cols = np.concatenate([edges[:, 1], edges[:, 0]])
+    return sp.csr_matrix((data, (rows, cols)), shape=(n, n))
+
+
+def random_neighborhoods(n, edges, num, order, rs):
+    """Vertex subset: the union of `num` balls of radius `order` around
+    random centres (spg.py:114-121), by sparse BFS."""
+    adj = _adjacency(n, edges)
+    centers = rs.choice(n, size=min(num, n), replace=False)
+    frontier = np.zeros(n, bool)
+    frontier[centers] = True
+    reach = frontier.copy()
+    for _ in range(order):
+        frontier = (adj @ frontier) > 0
+        reach |= frontier
+    return np.flatnonzero(reach)
+
+
+def induced_subgraph(subset, node_arrays, edges, edge_arrays):
+    """The graph induced on `subset` (its order is the new node order),
+    edge endpoints remapped."""
+    remap = -np.ones(int(max(np.max(subset), 0)) + 1 if len(subset) else 1,
+                     np.int64)
+    remap[subset] = np.arange(len(subset))
+    if len(edges):
+        keep = np.isin(edges[:, 0], subset) & np.isin(edges[:, 1], subset)
+        new_edges = remap[edges[keep]]
+        new_edge_arrays = [a[keep] for a in edge_arrays]
+    else:
+        new_edges = edges
+        new_edge_arrays = edge_arrays
+    return [a[subset] for a in node_arrays], new_edges, new_edge_arrays
+
+
+def spg_subsample(node_gt, node_gt_size, edges, edge_feats, cfg: LoaderConfig,
+                  ptn_minpts: int, rs: np.random.RandomState):
+    """Training-time graph augmentation (spg.py:132-143): permute, keep
+    random neighbourhoods, then cut after spg_augm_hardcutoff superpoints
+    of at least ptn_minpts points. Returns the subgraph and the kept
+    superpoints' original ids."""
+    n = node_gt.shape[0]
+    ids = np.arange(n)
+
+    if 0 < cfg.spg_augm_hardcutoff < n:
+        perm = rs.permutation(n)
+        (node_gt, node_gt_size, ids), edges, (edge_feats,) = induced_subgraph(
+            perm, [node_gt, node_gt_size, ids], edges, [edge_feats])
+        n = len(perm)
+
+    if 0 < cfg.spg_augm_nneigh < n:
+        subset = random_neighborhoods(n, edges, cfg.spg_augm_nneigh,
+                                      cfg.spg_augm_order, rs)
+        (node_gt, node_gt_size, ids), edges, (edge_feats,) = induced_subgraph(
+            subset, [node_gt, node_gt_size, ids], edges, [edge_feats])
+        n = len(subset)
+
+    if 0 < cfg.spg_augm_hardcutoff < n:
+        valid = node_gt_size.sum(1) >= ptn_minpts
+        below = np.flatnonzero(np.cumsum(valid) <= cfg.spg_augm_hardcutoff)
+        k = (below[-1] + 1) if len(below) else n
+        (node_gt, node_gt_size, ids), edges, (edge_feats,) = induced_subgraph(
+            np.arange(k), [node_gt, node_gt_size, ids], edges, [edge_feats])
+    return node_gt, node_gt_size, edges, edge_feats, ids
+
+
 def load_spg_sample(spg_entry, parsed: Mapping, cfg: LoaderConfig,
-                    test_seed_offset: int = 0) -> dict | None:
-    """Test-time sample of one cloud: every superpoint's point set. Returns
-    None for a graph without edges."""
+                    train: bool = False, test_seed_offset: int = 0,
+                    rs: np.random.RandomState | None = None) -> dict | None:
+    """One cloud's sample (spg.py:130-171): in training the subsampled
+    graph and augmented point sets drawn from `rs`, else every superpoint's
+    point set. Returns None for a graph without edges."""
     node_gt, node_gt_size, edges, edge_feats, name = spg_entry
+    rs = rs or np.random.RandomState()
+    if train:
+        node_gt, node_gt_size, edges, edge_feats, ids = spg_subsample(
+            node_gt, node_gt_size, edges, edge_feats, cfg, cfg.ptn_minpts, rs)
+    else:
+        ids = np.arange(node_gt.shape[0])
     if len(edges) == 0:
         return None
     k = node_gt.shape[0]
@@ -109,13 +230,14 @@ def load_spg_sample(spg_entry, parsed: Mapping, cfg: LoaderConfig,
                       np.float32)
     globs = np.zeros(k, np.float32)
     flags = np.zeros(k, np.int32)
-    for sp in range(k):
-        P, diam = load_superpoint(parsed, sp, cfg, test_seed_offset)
+    for i, sp in enumerate(ids):
+        P, diam = load_superpoint(parsed, int(sp), cfg, train,
+                                  test_seed_offset, rs)
         if P is None:
-            flags[sp] = -1
+            flags[i] = -1
         else:
-            clouds[sp] = P
-            globs[sp] = diam
+            clouds[i] = P
+            globs[i] = diam
     return {"node_gt": node_gt, "node_gt_size": node_gt_size, "edges": edges,
             "edge_feats": edge_feats, "clouds": clouds, "clouds_global": globs,
             "cloud_flag": flags, "name": name}

@@ -1,12 +1,13 @@
-"""Per-superpoint point sets ("parsed" rows), in memory.
+"""Per-superpoint point sets ("parsed" rows) and class counts.
 
 Port of superpoint_graph_tpu/data/parsed.py (`build_point_matrix` for
-S3DIS and Semantic3D, the per-component split of `write_parsed`; reference
-s3dis_dataset.py:93-162, sema3d_dataset.py), whose module imports h5py at
-top level. `parsed_entries` builds the same per-component arrays straight
-from a partition, with no h5 round trip; `write_parsed` keeps the file
-form, importing h5py only when called. The vKITTI row style and the RANSAC
-elevation (sklearn) wait for their readers.
+S3DIS and Semantic3D, `write_parsed`, `preprocess_pointclouds`, the class
+counts and `class_weights`; reference s3dis_dataset.py:72-162,
+sema3d_dataset.py), whose module imports h5py at top level.
+`parsed_entries` builds the same per-component arrays straight from a
+partition, with no h5 round trip; the file functions import h5py only when
+called. The vKITTI row style and the RANSAC plane elevation (sklearn) wait
+for the vKITTI reader (ROADMAP queue 1 item 2) and raise.
 
 Row layouts: s3dis, 15 columns: [xyz, rgb/255-0.5, elevation, lpsv-0.5,
 xyz normalised to the room box, distance to the room centre]; sema3d, 11
@@ -21,15 +22,27 @@ import random
 import numpy as np
 
 
-def build_point_matrix(xyz, rgb, geof, style: str = "s3dis") -> np.ndarray:
-    """The parsed per-point row matrix of a cloud (column layout in
-    data/loader.py), style "s3dis" or "sema3d"; the elevation is the simple
-    z/4 - 0.5 (s3dis_dataset.py:135-136)."""
+def _not_ported(style: str, plane_elevation: bool):
+    if style == "vkitti" or plane_elevation:
+        raise NotImplementedError(
+            "the vKITTI row style and the RANSAC plane elevation are not "
+            "ported yet (ROADMAP queue 1 item 2)")
     if style not in ("s3dis", "sema3d"):
         raise ValueError(f"style={style!r}: 's3dis' or 'sema3d'")
+
+
+def build_point_matrix(xyz, rgb, geof, style: str = "s3dis",
+                       plane_elevation: bool = False,
+                       elevation=None) -> np.ndarray:
+    """The parsed per-point row matrix of a cloud (column layout in
+    data/loader.py), style "s3dis" or "sema3d"; the elevation is the one
+    given, else the simple z/4 - 0.5 (s3dis_dataset.py:135-136)."""
+    _not_ported(style, plane_elevation)
     xyz = np.asarray(xyz, np.float32)
     rgbn = np.asarray(rgb, np.float32) / 255.0 - 0.5
-    e = (xyz[:, 2] / 4.0 - 0.5)[:, None]
+    if elevation is None:
+        elevation = xyz[:, 2] / 4.0 - 0.5
+    e = np.asarray(elevation)[:, None].astype(np.float32)
     lpsv = geof.astype(np.float32) - 0.5
     if style == "sema3d":
         return np.concatenate([xyz, rgbn, e, lpsv], axis=1).astype(np.float32)
@@ -66,3 +79,84 @@ def write_parsed(path: str, P: np.ndarray, components, max_pts: int = 10000,
     with h5py.File(path, "w") as hf:
         for key, rows in parsed_entries(P, components, max_pts, seed).items():
             hf.create_dataset(key, data=rows)
+
+
+def write_class_count(path: str, class_count: np.ndarray):
+    import h5py
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("class_count", data=class_count, dtype="int")
+
+
+def read_class_count(path: str) -> np.ndarray:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return f["class_count"][:]
+
+
+def preprocess_pointclouds(root: str, dataset: str = "s3dis",
+                           n_classes: int = 13, supervized: bool = False,
+                           plane_elevation: bool = False):
+    """Every <root>/superpoint_graphs/<folder>/<name>.h5 with its
+    features/ (features_supervision/ when supervized) file ->
+    parsed/<folder>/<name>.h5, and the per-class point counts of each folder
+    -> parsed/class_count.h5 (a column a folder; one vector for a single
+    folder). Styles "s3dis" and "sema3d" (JAX parsed.py:94-175)."""
+    import h5py
+
+    _not_ported(dataset, plane_elevation)
+    spg_root = os.path.join(root, "superpoint_graphs")
+    feat_dirname = "features_supervision" if supervized else "features"
+    folders = sorted(d for d in os.listdir(spg_root)
+                     if os.path.isdir(os.path.join(spg_root, d)))
+    n_folds = max(len(folders), 1)
+    class_count = np.zeros((n_classes, n_folds), dtype="int64")
+    for fi, folder in enumerate(folders):
+        out_dir = os.path.join(root, "parsed", folder)
+        os.makedirs(out_dir, exist_ok=True)
+        for fname in sorted(os.listdir(os.path.join(spg_root, folder))):
+            if not fname.endswith(".h5"):
+                continue
+            with h5py.File(os.path.join(root, feat_dirname, folder, fname),
+                           "r") as f:
+                xyz = f["xyz"][:]
+                rgb = f["rgb"][:].astype(np.float64)
+                labels = f["labels"][:]
+                geof = f["geof"][:]
+                elevation = f["elevation"][:] if supervized else None
+            if labels.ndim > 1 and labels.shape[1] > 1:
+                hard = np.argmax(labels[:, 1:], 1)
+            else:
+                hard = np.maximum(labels.astype(np.int64) - 1, 0)
+            class_count[:, fi] += np.bincount(
+                hard, minlength=n_classes)[:n_classes]
+            P = build_point_matrix(xyz, rgb, geof, style=dataset,
+                                   elevation=elevation)
+            with h5py.File(os.path.join(spg_root, folder, fname), "r") as f:
+                numc = len(f["components"].keys())
+                comps = [f[f"components/{c}"][:].ravel() for c in range(numc)]
+            write_parsed(os.path.join(out_dir, fname), P, comps)
+    write_class_count(os.path.join(root, "parsed", "class_count.h5"),
+                      class_count if n_folds > 1 else class_count[:, 0])
+
+
+def class_weights(class_count: np.ndarray, mode: str,
+                  fold_cols=None) -> np.ndarray:
+    """none / proportional / sqrt class weights (s3dis_dataset.py:72-81):
+    mean count over each class's count, over the columns fold_cols of a
+    per-folder count."""
+    n_classes = class_count.shape[0]
+    if mode == "none":
+        return np.ones(n_classes, np.float32)
+    counts = class_count
+    if counts.ndim > 1:
+        if fold_cols is not None:
+            fold_cols = [c for c in fold_cols if c < counts.shape[1]]
+            counts = counts[:, fold_cols]
+        counts = counts.sum(1)
+    w = counts.mean() / np.maximum(counts, 1)
+    if mode == "sqrt":
+        w = np.sqrt(w)
+    return w.astype(np.float32)

@@ -1,8 +1,8 @@
 """Superpoint-graph entries for the model: node targets, edges, edge features.
 
-Port of superpoint_graph_tpu/data/spg_io.py (`spg_edge_features`, the
-node-attribute transforms of `spg_reader`, `EdgeFeatScaler`; reference
-learning/spg.py:23-103), whose module imports h5py at top level.
+Port of superpoint_graph_tpu/data/spg_io.py (`spg_edge_features`,
+`spg_reader` with its superedge cutoff, `EdgeFeatScaler`, `scaler01`;
+reference learning/spg.py:23-103), whose module imports h5py at top level.
 `spg_entry` builds the entry from an in-memory superpoint-graph dict;
 `spg_reader` reads the same from an SPG h5 file, importing h5py only when
 called.
@@ -43,13 +43,14 @@ def spg_edge_features(edges, node_att, edge_att, edge_attribs: str):
     return np.concatenate(columns, axis=1).astype(np.float32)
 
 
-def spg_entry(graph: dict, edge_attribs: str, name: str = ""):
+def spg_entry(graph: dict, edge_attribs: str, name: str = "",
+              spg_superedge_cutoff: float = -1):
     """(node_gt [n,1], node_gt_size [n,C+1], edges [E,2], edge_feats [E,F],
     name) from a superpoint-graph dict (the keys of graph/spg.py, or of an
     SPG h5 file): node GT is the argmax of the labelled histogram columns,
     -100 where a superpoint has no labelled point; surface and volume are
-    squared back (spg.py:66-103). The --spg_superedge_cutoff filter waits
-    for the training port."""
+    squared back (spg.py:66-103). With spg_superedge_cutoff > 0 the
+    superedges whose |delta_avg| reaches it are dropped."""
     sp_labels = np.asarray(graph["sp_labels"])
     count = np.asarray(graph["sp_point_count"])
     if sp_labels.size > 0:
@@ -75,12 +76,19 @@ def spg_entry(graph: dict, edge_attribs: str, name: str = ""):
     ).astype(np.int64)
     edge_att = {"delta_avg": f32("se_delta_mean"),
                 "delta_std": f32("se_delta_std")}
+    if spg_superedge_cutoff > 0:
+        keep = (np.linalg.norm(edge_att["delta_avg"], axis=1)
+                < spg_superedge_cutoff)
+        edges = edges[keep, :]
+        edge_att = {k: v[keep, :] for k, v in edge_att.items()}
     edge_feats = spg_edge_features(edges, node_att, edge_att, edge_attribs)
     return node_gt, node_gt_size, edges, edge_feats, name
 
 
-def spg_reader(fname: str, edge_attribs: str):
-    """`spg_entry` of an SPG h5 file (superpoint_graphs/<split>/<name>.h5)."""
+def spg_reader(fname: str, edge_attribs: str, spg_superedge_cutoff: float = -1,
+               incl_dir_in_name: bool = False):
+    """`spg_entry` of an SPG h5 file (superpoint_graphs/<split>/<name>.h5);
+    the name is '<split>/<name>' with incl_dir_in_name."""
     import h5py
 
     keys = ("sp_labels", "sp_point_count", "sp_centroids", "sp_length",
@@ -89,11 +97,13 @@ def spg_reader(fname: str, edge_attribs: str):
     with h5py.File(fname, "r") as f:
         graph = {k: f[k][:] for k in keys}
     name = os.path.basename(fname)[: -len(".h5")]
-    return spg_entry(graph, edge_attribs, name)
+    if incl_dir_in_name:
+        name = os.path.basename(os.path.dirname(fname)) + "/" + name
+    return spg_entry(graph, edge_attribs, name, spg_superedge_cutoff)
 
 
 class EdgeFeatScaler:
-    """StandardScaler over edge features (spg.py:51-64)."""
+    """StandardScaler over edge features (spg.py:51-64), checkpointable."""
 
     def __init__(self, mean=None, scale=None):
         self.mean = mean
@@ -108,3 +118,23 @@ class EdgeFeatScaler:
 
     def transform(self, edge_feats):
         return ((edge_feats - self.mean) / self.scale).astype(np.float32)
+
+    def state_dict(self):
+        return {"mean": self.mean, "scale": self.scale}
+
+    @classmethod
+    def from_state(cls, state):
+        return cls(np.asarray(state["mean"]), np.asarray(state["scale"]))
+
+
+def scaler01(trainlist, testlist, transform_train=True, validlist=()):
+    """Fit the scaler on the train entries and scale the edge features
+    (entry index 3) of every split: (train, test, valid, scaler)."""
+    scaler = EdgeFeatScaler().fit(trainlist)
+
+    def apply(lst):
+        return [(g[0], g[1], g[2], scaler.transform(g[3]), *g[4:])
+                for g in lst]
+
+    out_train = apply(trainlist) if transform_train else trainlist
+    return out_train, apply(testlist), apply(list(validlist)), scaler

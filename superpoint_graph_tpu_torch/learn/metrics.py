@@ -1,11 +1,62 @@
-"""Partition-quality metrics, host numpy.
+"""Segmentation and partition-quality metrics, host numpy.
 
-`compute_OOA` carries superpoint_graph_tpu/learn/metrics.py's (reference
-metrics.py:102-108), vectorised; `disconnected_labels` the connectivity
-audit of tools/partition_quality.py."""
+`ConfusionMatrix` is superpoint_graph_tpu/learn/metrics.py:14-60's
+(reference metrics.py): soft ground-truth histograms counted against hard
+predictions, mIoU over the classes seen, mAcc over all classes.
+`compute_OOA` carries the JAX package's (reference metrics.py:102-108),
+vectorised; `disconnected_labels` the connectivity audit of
+tools/partition_quality.py."""
 from __future__ import annotations
 
 import numpy as np
+
+
+class ConfusionMatrix:
+    def __init__(self, number_of_labels: int = 2):
+        self.number_of_labels = number_of_labels
+        self.confusion_matrix = np.zeros(
+            (number_of_labels, number_of_labels), dtype=np.float64)
+
+    def count_predicted(self, ground_truth, predicted, n=1):
+        self.confusion_matrix[ground_truth, predicted] += n
+
+    def count_predicted_batch(self, ground_truth_vec, predicted):
+        """ground_truth_vec [n, C] soft histograms, predicted [n] hard ids."""
+        np.add.at(self.confusion_matrix.T, predicted, ground_truth_vec)
+
+    def count_predicted_batch_hard(self, ground_truth_vec, predicted):
+        np.add.at(self.confusion_matrix, (ground_truth_vec, predicted), 1)
+
+    def get_count(self, ground_truth, predicted):
+        return self.confusion_matrix[ground_truth, predicted]
+
+    def get_confusion_matrix(self):
+        return self.confusion_matrix
+
+    def get_intersection_union_per_class(self):
+        cm = self.confusion_matrix
+        diag = np.diag(cm)
+        divisor = cm.sum(0) + cm.sum(1) - diag
+        divisor = np.where(diag == 0, 1.0, divisor)
+        return (diag / divisor).tolist()
+
+    def get_overall_accuracy(self):
+        total = self.confusion_matrix.sum()
+        return float(np.trace(self.confusion_matrix)) / max(total, 1.0)
+
+    def get_average_intersection_union(self):
+        values = self.get_intersection_union_per_class()
+        cm = self.confusion_matrix
+        seen = ((cm.sum(1) + cm.sum(0)) != 0).sum()
+        return sum(values) / max(seen, 1)
+
+    def get_mean_class_accuracy(self):
+        cm = self.confusion_matrix
+        per_class = np.diag(cm) / np.maximum(1, cm.sum(1))
+        return float(per_class.sum()) / self.number_of_labels
+
+    def count_gt(self, ground_truth):
+        return self.confusion_matrix[ground_truth, :].sum()
 
 
 def compute_OOA(components, labels) -> float:

@@ -17,7 +17,7 @@ from torch import nn
 
 from .cells import GRUCellEx, LSTMCellEx
 from .ecc import ecc_conv
-from .norm import MaskedBatchNorm
+from .norm import Dropout, MaskedBatchNorm
 from .pointnet import _run
 
 
@@ -103,7 +103,7 @@ class GraphNetwork(nn.Module):
             elif t == "r":
                 module = nn.ReLU()
             elif t == "d":
-                module = nn.Dropout(float(parts[1]))
+                module = Dropout(float(parts[1]))
             elif t in ("gru", "lstm"):
                 nrep = int(parts[1])
                 flags = [bool(int(p)) for p in parts[2:6]]
@@ -123,10 +123,11 @@ class GraphNetwork(nn.Module):
             self.add_module(str(d), module)
 
     def forward(self, h, edge_feats, src, tgt, edge_mask, node_mask=None,
-                edge_feat_idx=None, fnet_mask=None):
+                edge_feat_idx=None, fnet_mask=None, generator=None):
         """With edge_feat_idx set, `edge_feats` holds the UNIQUE feature rows
         and each fnet output row is gathered back per edge; `fnet_mask`
-        masks the fnet's batch-norm rows (defaults to edge_mask)."""
+        masks the fnet's batch-norm rows (defaults to edge_mask);
+        `generator` draws the masks of `d` tokens in training mode."""
         if fnet_mask is None:
             fnet_mask = edge_mask
         for module in self.children():
@@ -139,6 +140,8 @@ class GraphNetwork(nn.Module):
                 h = module(h, weights, src, tgt, edge_mask)
             elif isinstance(module, MaskedBatchNorm):
                 h = module(h, node_mask)
+            elif isinstance(module, Dropout):
+                h = module(h, generator)
             else:
                 h = module(h)
         return h

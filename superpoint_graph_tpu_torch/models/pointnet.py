@@ -1,9 +1,10 @@
-"""PointNet superpoint embedder with its spatial transformer (inference).
+"""PointNet superpoint embedder with its spatial transformer.
 
 Port of superpoint_graph_tpu/models/pointnet.py (`STNkD`, `PointNet`;
 reference learning/pointnet.py:16-133) with the reference's module layout:
 `convs` = [Conv1x1, BN, ReLU]*, `fcs` = [Linear, BN, ReLU]* (+ Dropout before
-the last Linear when prelast_do > 0), `stn.proj`. Clouds are [n_sp, n_pts, C]
+the last Linear when prelast_do > 0, its mask drawn from the generator the
+caller passes), `stn.proj`. Clouds are [n_sp, n_pts, C]
 (feature last, the JAX package's layout). Input widths are explicit: the STN
 sees the first `nfeat_stn` channels, the conv stack all `nfeat`.
 """
@@ -15,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .norm import MaskedBatchNorm
+from .norm import Dropout, MaskedBatchNorm
 
 
 class Conv1x1(nn.Module):
@@ -31,10 +32,21 @@ class Conv1x1(nn.Module):
         return F.linear(x, self.weight[..., 0], self.bias)
 
 
-def _run(seq: nn.Sequential, x, mask):
+def _run(seq: nn.Sequential, x, mask, generator=None):
     for layer in seq:
-        x = layer(x, mask) if isinstance(layer, MaskedBatchNorm) else layer(x)
+        if isinstance(layer, MaskedBatchNorm):
+            x = layer(x, mask)
+        elif isinstance(layer, Dropout):
+            x = layer(x, generator)
+        else:
+            x = layer(x)
     return x
+
+
+def max_pool(x):
+    """Max over the points of [n_sp, n_pts, C]; its gradient goes to the
+    maximal point (split evenly among exact ties)."""
+    return x.amax(1)
 
 
 def _conv_stack(n_in: int, widths: Sequence[int]) -> nn.Sequential:
@@ -62,7 +74,7 @@ class STNkD(nn.Module):
         self.proj = nn.Linear(n_in, k * k)
 
     def forward(self, x, mask=None):
-        x = _run(self.convs, x, mask).amax(1)  # max-pool over points
+        x = max_pool(_run(self.convs, x, mask))
         x = self.proj(_run(self.fcs, x, mask))
         eye = torch.eye(self.k, dtype=x.dtype, device=x.device)
         return x.reshape(-1, self.k, self.k) + eye
@@ -85,22 +97,23 @@ class PointNet(nn.Module):
             if i < len(nf_fc) - 1:
                 layers += [MaskedBatchNorm(w), nn.ReLU()]
             if i == len(nf_fc) - 2 and prelast_do > 0:
-                layers.append(nn.Dropout(prelast_do))
+                layers.append(Dropout(prelast_do))
             n_in = w
         self.fcs = nn.Sequential(*layers)
 
-    def forward(self, clouds, clouds_global, mask=None):
-        """clouds [n_sp, n_pts, C], clouds_global [n_sp, G], mask [n_sp]."""
+    def forward(self, clouds, clouds_global, mask=None, generator=None):
+        """clouds [n_sp, n_pts, C], clouds_global [n_sp, G], mask [n_sp];
+        `generator` draws the dropout mask in training mode."""
         x = clouds
         if self.stn is not None:
             t = self.stn(x[..., :self.nfeat_stn], mask)
             # xy' = xy @ T (reference pointnet.py:121-124)
             x = torch.cat([torch.bmm(x[..., :2], t), x[..., 2:]], -1)
-        x = _run(self.convs, x, mask).amax(1)
+        x = max_pool(_run(self.convs, x, mask))
         if clouds_global is not None:
             g = clouds_global if clouds_global.ndim > 1 else clouds_global[:, None]
             x = torch.cat([x, g], -1)
-        x = _run(self.fcs, x, mask)
+        x = _run(self.fcs, x, mask, generator)
         if mask is not None:
             x = torch.where(mask[:, None], x, 0.0)  # CloudEmbedder zero-fill
         return x

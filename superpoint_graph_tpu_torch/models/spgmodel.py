@@ -7,17 +7,27 @@ Unlike flax's Dense, torch layers need their input widths: `ptn_nfeat` is
 the number of point channels the loader emits
 (data/loader.py::pc_attrib_dims, 14 for the default "xyzrgbelpsvXYZ") and
 sizes the conv stack; the STN sees the first `ptn_nfeat_stn` of them.
+
+Training mode: batch norms on batch statistics, dropout masks from the
+generator the caller passes, and optionally the reference's PointNet memory
+monger (`ptn_mem_monger`, pointnet.py:160-180; the JAX package's
+`jax.checkpoint`, learn/train.py:150-153): torch.utils.checkpoint around the
+embedder, whose replay in backward neither updates the running statistics
+again nor draws new dropout masks (`_monger_contexts`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .graphnet import GraphNetwork
+from .norm import recomputing
 from .pointnet import Conv1x1, PointNet
 
 
@@ -41,8 +51,37 @@ class SpgBatch:
     edge_uniq_mask: Optional[torch.Tensor] = None  # [n_uniq] bool
 
 
+def _monger_contexts(generator: Optional[torch.Generator]):
+    """context_fn of torch.utils.checkpoint: the forward notes the
+    generator's state; the replay in backward runs under `recomputing()`
+    from that state (the same dropout masks), then puts the generator back
+    where the forward left it."""
+    saved = {}
+
+    @contextlib.contextmanager
+    def forward():
+        if generator is not None:
+            saved["state"] = generator.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def replay():
+        after = None
+        if generator is not None:
+            after = generator.get_state()
+            generator.set_state(saved["state"])
+        try:
+            with recomputing():
+                yield
+        finally:
+            if generator is not None:
+                generator.set_state(after)
+
+    return forward(), replay()
+
+
 class SpgModel(nn.Module):
-    """ptn + ecc, with the reference CLI's hyper-parameters (inference)."""
+    """ptn + ecc, with the reference CLI's hyper-parameters."""
 
     def __init__(
         self,
@@ -106,8 +145,18 @@ class SpgModel(nn.Module):
         if self.ptn.stn is not None:
             self.ptn.stn.proj.weight.zero_()
 
-    def forward(self, batch: SpgBatch) -> torch.Tensor:
-        emb = self.ptn(batch.clouds, batch.clouds_global, batch.cloud_mask)
+    def forward(self, batch: SpgBatch,
+                generator: Optional[torch.Generator] = None,
+                mem_monger: bool = False) -> torch.Tensor:
+        """Logits [n_sp, n_classes]. `generator` draws the dropout masks in
+        training mode; `mem_monger` recomputes the PointNet's activations
+        in backward instead of keeping them (training with autograd)."""
+        args = (batch.clouds, batch.clouds_global, batch.cloud_mask, generator)
+        if mem_monger and self.training and torch.is_grad_enabled():
+            emb = checkpoint(self.ptn, *args, use_reentrant=False,
+                             context_fn=lambda: _monger_contexts(generator))
+        else:
+            emb = self.ptn(*args)
         emb = torch.where(batch.cloud_mask[:, None], emb, 0.0)
         if batch.edge_feat_uniq is not None:
             ef, idx, fnet_mask = (batch.edge_feat_uniq, batch.edge_feat_idx,
@@ -116,4 +165,4 @@ class SpgModel(nn.Module):
             ef, idx, fnet_mask = batch.edge_feats, None, batch.edge_mask
         return self.ecc(emb, ef, batch.src, batch.tgt, batch.edge_mask,
                         node_mask=batch.node_mask, edge_feat_idx=idx,
-                        fnet_mask=fnet_mask)
+                        fnet_mask=fnet_mask, generator=generator)

@@ -188,3 +188,46 @@ def test_chunked_partition_on_card_repeats_bit_for_bit(dev):
     assert pipeline_big.LAST_CP_STATS["cc_capped"] == 0
     for r in runs[1:]:
         np.testing.assert_array_equal(r, runs[0])
+
+
+# ---------------------------------------------------------------- training
+def test_train_step_on_card_matches_cpu(dev):
+    """One training step's forward and backward of the flagship (memory
+    monger on) on the card against the CPU from the same weights and batch,
+    by learn/train_check.py's card_vs_cpu (chip_smoke.py's check (b)): the
+    loss within 1e-5 relative, each gradient within 1e-4 of its tensor's
+    largest |g| (the biases feeding a batch norm, zero by construction,
+    below 1e-4 of the model's largest gradient), the running statistics
+    within 1e-5; where a ReLU or a max-pool takes another branch on the
+    CPU than on the card, each such element must be a near-tie, and the
+    CPU's step is run again on the card's branches."""
+    from superpoint_graph_tpu_torch.learn.train import Trainer
+    from superpoint_graph_tpu_torch.learn.train_check import (bn_fed_biases,
+                                                              card_vs_cpu)
+    from superpoint_graph_tpu_torch.models.spgmodel import SpgBatch, SpgModel
+
+    rng = np.random.RandomState(0)
+    n_sp, pad_sp, n_e, pad_e = 300, 384, 2000, 2048
+    a = {
+        "clouds": rng.randn(pad_sp, 128, 14).astype(np.float32),
+        "clouds_global": rng.rand(pad_sp, 1).astype(np.float32),
+        "cloud_mask": np.r_[np.ones(n_sp, bool), np.zeros(pad_sp - n_sp, bool)],
+        "node_mask": np.r_[np.ones(n_sp, bool), np.zeros(pad_sp - n_sp, bool)],
+        "targets": np.r_[rng.randint(0, 13, n_sp), np.full(pad_sp - n_sp, -100)],
+        "target_size": np.zeros((pad_sp, 14), np.int64),
+        "src": np.r_[rng.randint(0, n_sp, n_e), np.zeros(pad_e - n_e, int)],
+        "tgt": np.r_[rng.randint(0, n_sp, n_e), np.zeros(pad_e - n_e, int)],
+        "edge_mask": np.r_[np.ones(n_e, bool), np.zeros(pad_e - n_e, bool)],
+        "edge_feats": rng.randn(pad_e, 13).astype(np.float32),
+    }
+    model = SpgModel(13, ptn_nfeat=14, ptn_nfeat_stn=14)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+
+    def fresh(device):
+        m = SpgModel(13, ptn_nfeat=14, ptn_nfeat_stn=14)
+        m.load_state_dict(model.state_dict())
+        return Trainer(m, checkpoint_ptn=True, device=device)
+
+    batch = SpgBatch(**{k: torch.as_tensor(v, device=dev)
+                        for k, v in a.items()})
+    card_vs_cpu(fresh, batch, bn_fed_biases(model))

@@ -238,8 +238,9 @@ def test_weighted_ce_loss_matches_jax(rng):
 
 
 def test_model_is_inference_only():
-    """Batch statistics are not ported: training mode raises, eval runs;
-    seeded initialisation is reproducible."""
+    """eval_step is inference only: it refuses a model in training mode
+    (which now runs on batch statistics and updates the running ones) and
+    runs in eval mode; seeded initialisation is reproducible."""
     from superpoint_graph_tpu_torch.learn.infer import eval_step
 
     m1 = SpgModel(6, **dict(SMALL, model_config="gru_1_0,f_6"), ptn_nfeat=11)
@@ -251,7 +252,8 @@ def test_model_is_inference_only():
     batch = _torch_batch(_batch_arrays(np.random.RandomState(0), 11, 7))
     with pytest.raises(ValueError):
         eval_step(m1, batch)
-    with pytest.raises(NotImplementedError):
-        m1(batch)
+    before = m1.ptn.convs[1].running_mean.clone()
+    assert torch.isfinite(m1(batch)).all()
+    assert not torch.equal(m1.ptn.convs[1].running_mean, before)
     loss, logits = eval_step(m1.eval(), batch)
     assert torch.isfinite(loss) and torch.isfinite(logits).all()

@@ -404,9 +404,9 @@ def test_entry_points_default_to_card(name):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports without jax,
-    flax, h5py, pandas or any module of the JAX package (a fresh
-    interpreter)."""
+    """Every module of the port (cli/ included), and chip_smoke.py, imports
+    without jax, flax, h5py, pandas or any module of the JAX package (a
+    fresh interpreter)."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import superpoint_graph_tpu_torch as p\n"
@@ -416,7 +416,15 @@ def test_port_imports_no_jax():
         "        'superpoint_graph_tpu_torch.ops.merge_device',\n"
         "        'superpoint_graph_tpu_torch.graph.spg_device',\n"
         "        'superpoint_graph_tpu_torch.pipeline_big',\n"
-        "        'superpoint_graph_tpu_torch.scan'} <= set(names), names\n"
+        "        'superpoint_graph_tpu_torch.scan',\n"
+        "        'superpoint_graph_tpu_torch.learn.train',\n"
+        "        'superpoint_graph_tpu_torch.learn.train_check',\n"
+        "        'superpoint_graph_tpu_torch.learn.checkpoint',\n"
+        "        'superpoint_graph_tpu_torch.data.datasets',\n"
+        "        'superpoint_graph_tpu_torch.utils.h5io',\n"
+        "        'superpoint_graph_tpu_torch.cli.partition',\n"
+        "        'superpoint_graph_tpu_torch.cli.train',\n"
+        "        'superpoint_graph_tpu_torch.cli.evaluate'} <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
