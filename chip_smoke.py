@@ -78,7 +78,34 @@ one NVIDIA GPU.
    the path uses) equal to nn1_plain on 65,536 sampled rows of the chunk,
    and the path's labels of those rows equal to the voxel classes the
    plain nn1 picks.
-11. Timing at the nn1 shapes, with CUDA events: the kernel (mean of 3
+11. Supervised partition (SSP): five more synthetic rooms of 300,000 raw
+   points (RandomState(SEED + 20 + i); Area_1/room_0 the test room at
+   cvfold 1, four training rooms) through cli/ssp_preprocess's
+   preprocess_file at the recipe's flags (reader with nn1, prune, kNN,
+   geof, transitions, the RANSAC plane), the LocalEmbedder trained 2 epochs
+   by cli/ssp_train's run_epoch (batch 4 at max_ver_train 10,000, the
+   device cut pursuit in every step), the test room's final evaluation,
+   model.ckpt, then cli/ssp_generate's partition and SPG of all five
+   rooms; structures and SPGs in memory. Printed: each room's voxels,
+   edges, transitions, RANSAC plane and seconds, each step's loss, mean
+   component size and solver statistics, ASA/BR/BP of the test room (random
+   init on synthetic rooms: not a quality figure), superpoints. Checks:
+   reader labels against the generator's, nn1 at the test room's read
+   shape against nn1_plain; no capped in-loop CC call; two generate runs
+   bit-equal; each SPG readable (read_spg, or in memory without h5py); the
+   structure on the card against the CPU (prune, elevation, xyn equal;
+   kNN, transitions equal and geof within 1e-5 on 8,192 sampled voxels);
+   one step on the card against the CPU's in float64 given the card's
+   loss weights (learn/train_check.py, TRAIN_TOL; each channel of a
+   batch-norm bias before a max-pool to its cancelled sum); the in-loop
+   device partition of the trained embeddings against the host exact
+   solver (QUALITY_BOUNDS energy and components); 30 steps on one fixed
+   batch end below the first loss. Printed: each float32 step's (card,
+   CPU; on the float64 step's branches) largest gradient error from the
+   float64 one, the step split by CUDA events (embed / host weights, of
+   which the solve / loss + backward + Adam), peak memory; under "ssp" in
+   the JSON line.
+12. Timing at the nn1 shapes, with CUDA events: the kernel (mean of 3
    calls after a warm-up), the plain version (one call on the queries it
    was checked on: all of them, or the sampled rows), one PyTorch call of
    the same function (torch.cdist in its matrix-product mode + argmin, in
@@ -86,9 +113,9 @@ one NVIDIA GPU.
    flops a pair, the 3 FMAs of the expanded form, at 67 TFLOP/s, or the
    bytes at 3.35 TB/s if larger). The direct-mode torch.cdist yardstick
    (~21 minutes at 1M x 1M) lives in tools/nn1_cdist_direct.py.
-12. One JSON line with the kernel table (top-level numbers at the read
+13. One JSON line with the kernel table (top-level numbers at the read
    shape, 1M x 1M; every shape under "shapes"; launches of each path) and
-   the training phase's numbers, the card line, and last
+   the training and SSP phases' numbers, the card line, and last
    {"ok": true, "device": {...}}.
 
 Exits non-zero on any failure, when no CUDA device is visible, or when run
@@ -596,13 +623,15 @@ TIMED_STEPS, WARM_STEPS = 20, 3
 
 @contextlib.contextmanager
 def recorded(module, name):
-    """Within: `module.<name>` runs as it is and appends each call's result
-    to the yielded list."""
+    """Within: `module.<name>` runs as it is and appends each call's
+    (result, host seconds) to the yielded list."""
     calls, orig = [], getattr(module, name)
 
     def wrapper(*args, **kwargs):
-        calls.append(orig(*args, **kwargs))
-        return calls[-1]
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        calls.append((out, time.perf_counter() - t0))
+        return out
 
     setattr(module, name, wrapper)
     try:
@@ -674,7 +703,7 @@ def train_phase(dev, tmp, room_part, points=TRAIN_ROOM_POINTS):
                              "rooms")
     checks, read_agree = [], {}
     g = torch.Generator(device=dev).manual_seed(SEED)
-    for (name, path), (xyz, _, labels, _) in zip(paths.items(), reads):
+    for (name, path), ((xyz, _, labels, _), _) in zip(paths.items(), reads):
         agree = read_agree[name] = float((labels == want_labels[name]).mean())
         print(f"[check] {name}: reader labels equal to the generator's: "
               f"{agree:.6f}", flush=True)
@@ -818,6 +847,401 @@ def train_phase(dev, tmp, room_part, points=TRAIN_ROOM_POINTS):
               "superpoints_per_batch", "max_memory_allocated_gib", "phase_s"):
         print(f"[train] {k}: {out[k]}")
     sys.stdout.flush()
+    return launches, checks, out
+
+
+# the supervised partition (SSP): five more synthetic rooms through
+# cli/ssp_preprocess.preprocess_file at its defaults (the S3DIS recipe:
+# voxel 0.03, k_nn_adj 5, k_nn_local 20, the RANSAC plane), the embedder
+# trained by cli/ssp_train's loop at its defaults (batch 4, max_ver_train
+# 10000, Adam 1e-2, clip 1, TVH_zhang, crosspartition, reg 0.8, spatial_emb
+# 0.2, CP_cutoff 25, --cp_backend tpu: the device solver in every step),
+# partitions by cli/ssp_generate; structures and SPGs in memory (no h5py on
+# the card's machine). Area_1/room_0 is the test room at cvfold 1.
+SSP_ROOMS = ("Area_1/room_0",) + tuple(f"Area_2/room_{i}" for i in range(1, 5))
+SSP_ROOM_POINTS = 300_000
+SSP_OVERFIT_STEPS = 30
+# sampled rows of the structure's card-against-CPU kNN, geof and transitions
+SSP_CHECK_ROWS = 8192
+
+
+def structure_vs_cpu(raw, s, dev, rows=SSP_CHECK_ROWS):
+    """The card's supervision structure `s` of a room against the CPU's
+    from the reader's arrays `raw`: the prune on the CPU (voxels, rgb,
+    label histograms, objects, elevation, xyn bit-equal), then on
+    `rows` sampled voxels the CPU's exact kNN (the card's adjacency and
+    local tables' rows equal), geof (1e-5, 2e-2 on degenerate
+    neighbourhoods, the port's tolerance) and transitions (equal). Raises
+    outside them."""
+    import torch
+
+    from superpoint_graph_tpu_torch.ops.geof import compute_geof_rows
+    from superpoint_graph_tpu_torch.ops.knn import knn_vs_db
+    from superpoint_graph_tpu_torch.ops.voxel import prune
+    from superpoint_graph_tpu_torch.utils.ransac import plane_elevation
+
+    t0 = time.perf_counter()
+    xyz, rgb, labels, objects = raw
+    vx, vrgb, vlab, vobj = prune(
+        np.asarray(xyz, np.float32), 0.03, rgb, np.asarray(labels, np.int32),
+        np.asarray(objects, np.int32), 13, int(objects.max()) + 1,
+        device="cpu")
+    obj = vobj[:, 1:].argmax(1) + 1
+    ma, mi = vx[:, :2].max(0, keepdims=True), vx[:, :2].min(0, keepdims=True)
+    equal = {
+        "voxels": np.array_equal(vx, s["xyz"]),
+        "rgb": np.array_equal(vrgb.astype(np.float32), s["rgb"]),
+        "labels": np.array_equal(vlab, s["labels"]),
+        "objects": np.array_equal(obj, s["objects"]),
+        "elevation": np.array_equal(plane_elevation(vx).astype(np.float32),
+                                    s["elevation"]),
+        "xyn": np.array_equal(((vx[:, :2] - mi) / (ma - mi + 1e-8))
+                              .astype(np.float32), s["xyn"]),
+    }
+    n, k = len(vx), s["target_local_geometry"].shape[1]
+    k_adj = len(s["graph_nn"]["source"]) // n
+    pick = np.sort(np.random.RandomState(SEED).choice(n, rows, replace=False))
+    x = torch.as_tensor(vx)
+    idx, _ = knn_vs_db(x, torch.as_tensor(pick), k)
+    idx = idx.numpy()
+    equal["knn_rows"] = np.array_equal(
+        idx, s["target_local_geometry"][pick].astype(np.int64))
+    equal["adjacency_rows"] = np.array_equal(
+        idx[:, :k_adj],
+        s["graph_nn"]["target"].reshape(n, k_adj)[pick].astype(np.int64))
+    equal["transition_rows"] = np.array_equal(
+        (obj[pick][:, None] != obj[idx[:, :k_adj]]).astype(np.uint8),
+        s["is_transition"].reshape(n, k_adj)[pick])
+    geof = compute_geof_rows(x, x[pick], torch.as_tensor(idx)).numpy()
+    geof[:, 3] *= 2.0
+    err = np.abs(geof - s["geof"][pick])
+    out = {"rows": rows, "equal": equal, "geof_max_abs": float(err.max()),
+           "geof_rows_within_1e-5": float((err.max(1) <= 1e-5).mean()),
+           "seconds": time.perf_counter() - t0}
+    print(f"[ssp] structure card vs CPU: {json.dumps(out)}", flush=True)
+    if not (all(equal.values()) and out["geof_max_abs"] <= 2e-2
+            and out["geof_rows_within_1e-5"] >= 0.99):
+        raise AssertionError(f"the SSP structure differs on the CPU: {out}")
+    return out
+
+
+def spg_readable(graph_sp, comps, in_comp, tmp) -> str:
+    """An SPG of ssp_generate through utils/h5io.write_spg and read_spg
+    (the same graph back), or where h5py is absent the in-memory SPG
+    checked against what write_spg stores: every dataset present, one row
+    a superpoint, the point counts those of in_component. Returns which
+    check ran; raises on a mismatch."""
+    from superpoint_graph_tpu_torch.utils import h5io
+
+    n_sp = len(comps)
+    if importlib.util.find_spec("h5py"):
+        path = Path(tmp) / "spg_check.h5"
+        h5io.write_spg(str(path), graph_sp, comps, in_comp)
+        graph, comps_r, in_comp_r = h5io.read_spg(str(path))
+        ok = (np.array_equal(in_comp_r, in_comp) and len(comps_r) == n_sp
+              and all(np.array_equal(graph[k], np.asarray(
+                  graph_sp[k], graph[k].dtype)) for k in graph if k != "is_nn"))
+        how = "read_spg"
+    else:
+        keys = set(h5io.SPG_KEYS_F32) | {"sp_labels", "sp_point_count",
+                                         "source", "target"}
+        counts = np.bincount(np.asarray(in_comp), minlength=n_sp)
+        ok = (keys <= set(graph_sp)
+              and all(len(graph_sp[k]) == n_sp for k in (
+                  "sp_centroids", "sp_length", "sp_labels", "sp_point_count"))
+              and np.array_equal(np.ravel(graph_sp["sp_point_count"]), counts)
+              and all(np.array_equal(np.flatnonzero(in_comp == i), c)
+                      for i, c in enumerate(comps)))
+        how = "in memory (no h5py)"
+    if not ok:
+        raise AssertionError(f"an SSP superpoint graph is not readable ({how})")
+    return how
+
+
+def ssp_phase(dev, tmp, points=SSP_ROOM_POINTS):
+    """The supervised partition's path on `dev` (tools/torch_ssp_phase_cpu.py
+    runs it on the CPU with smaller rooms): returns (nn1 launches of the
+    path, the nn1 check at a room's read shape, the phase's numbers)."""
+    import dataclasses
+
+    import torch
+
+    from superpoint_graph_tpu_torch.cli import (ssp_evaluate, ssp_generate,
+                                                ssp_preprocess, ssp_train)
+    from superpoint_graph_tpu_torch.data import provider
+    from superpoint_graph_tpu_torch.data.synthetic import write_s3dis_room
+    from superpoint_graph_tpu_torch.learn.checkpoint import save_checkpoint
+    from superpoint_graph_tpu_torch.learn.train_check import (
+        bn_fed_biases, branches, card_vs_cpu, pooling_nets, ssp_step_record,
+        ssp_trainer_factory)
+    from superpoint_graph_tpu_torch.ops import cutpursuit_band
+    from superpoint_graph_tpu_torch.ops.cutpursuit import _energy
+    from superpoint_graph_tpu_torch.ops.nn1 import nn1
+    from superpoint_graph_tpu_torch.ssp import losses
+    from superpoint_graph_tpu_torch.ssp.embed import SspTrainer
+    from superpoint_graph_tpu_torch.ssp.evaluate import aggregate_matrices
+    from superpoint_graph_tpu_torch.ssp.graph_processing import (
+        graph_collate, graph_loader)
+    from superpoint_graph_tpu_torch.utils.ransac import ransac_plane
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    root = Path(tmp)
+    paths, want_labels = {}, {}
+    t0 = time.perf_counter()
+    for i, name in enumerate(SSP_ROOMS):
+        paths[name], want_labels[name], _ = write_s3dis_room(
+            root / "data" / name, np.random.RandomState(SEED + 20 + i), points)
+    write_s = time.perf_counter() - t0
+    print(f"[ssp] wrote {len(SSP_ROOMS)} rooms of {points} raw points in "
+          f"{write_s:.2f} s", flush=True)
+    p_args = ssp_preprocess.parse_args(["--ROOT_PATH", str(root)])
+    t_args = ssp_train.parse_args(["--seed", str(SEED)])
+    model_cfg, loss_cfg, loader_cfg = ssp_train.configs(vars(t_args))
+    n_classes = ssp_train.N_CLASSES["s3dis"]
+    train_names = SSP_ROOMS[1:]
+
+    # ---- the main path; only its nn1 launches are counted
+    nn1.launches = 0
+    structures, rooms = {}, {}
+    with recorded(provider, "read_s3dis_format") as reads:
+        for name, path in paths.items():
+            t0 = time.perf_counter()
+            structures[name] = ssp_preprocess.preprocess_file(str(path),
+                                                              p_args, dev)
+            rooms[name] = {"preprocess_s": time.perf_counter() - t0}
+    trainer = SspTrainer(model_cfg, loss_cfg, lr=t_args.lr,
+                         grad_clip=t_args.grad_clip, seed=SEED, device=dev)
+    rs = np.random.RandomState(SEED)
+    steps, epochs = [], []
+
+    def on_step(loss, comps, batch):
+        steps.append({"loss": loss, "vertices": len(batch["xyz"]),
+                      "components": len(comps),
+                      "mean_component_size": len(batch["xyz"]) / len(comps),
+                      "solve": dict(cutpursuit_band.LAST_SOLVE_STATS)})
+        print(f"[ssp] step {len(steps)}: {json.dumps(steps[-1])}", flush=True)
+
+    for epoch in range(2):
+        t0 = time.perf_counter()
+        entry = ssp_train.run_epoch(trainer, [structures[n] for n in train_names],
+                                    loader_cfg, t_args.batch_size, rs, on_step)
+        epochs.append({"epoch": epoch, **entry,
+                       "seconds": time.perf_counter() - t0})
+        print(f"[ssp] epoch {json.dumps(epochs[-1])}", flush=True)
+    ev = ssp_train.evaluate_clouds(trainer, loss_cfg, loader_cfg,
+                                   [structures[SSP_ROOMS[0]]], n_classes,
+                                   t_args.BR_tolerance, dev)
+    ckpt = str(root / "model.ckpt")
+    save_checkpoint(ckpt, trainer.state_dict(), 2, vars(t_args), None)
+    g_trainer, g_loss, g_loader = ssp_generate.load_model(ckpt, "tpu", dev)
+    spgs = {}
+    for name in SSP_ROOMS:
+        t0 = time.perf_counter()
+        spgs[name] = ssp_generate.generate_cloud(
+            g_trainer, g_loss, g_loader, structures[name], n_classes, dev)
+        rooms[name]["generate_s"] = time.perf_counter() - t0
+    launches = nn1.launches
+    summary = aggregate_matrices([ev.matrices()])
+    print("[ssp] ssp_evaluate (the test room, cvfold 1; random-init "
+          "training on synthetic rooms, not a quality figure):\n"
+          + ssp_evaluate.summary([("Area_1 (cv1)", ev.matrices())]),
+          flush=True)
+    print(f"[ssp] nn1 launches on the SSP path: {launches}", flush=True)
+    if on_card and launches < 2 * len(SSP_ROOMS):
+        raise AssertionError(f"nn1 launched {launches} times on the SSP path")
+
+    for (name, s), ((xyz, _, labels, _), _) in zip(structures.items(), reads):
+        low = np.flatnonzero(s["xyz"][:, 2] - s["xyz"][:, 2].min() < 0.5)
+        plane = ransac_plane(s["xyz"][low, :2], s["xyz"][low, 2])
+        rooms[name].update(
+            voxels=len(s["xyz"]), edges=len(s["graph_nn"]["source"]),
+            transitions=int(s["is_transition"].sum()),
+            plane=[*map(float, plane.coef), float(plane.intercept)],
+            superpoints=len(spgs[name][1]),
+            reader_label_agreement=float((labels == want_labels[name]).mean()))
+        print(f"[ssp] {name}: {json.dumps(rooms[name])}", flush=True)
+        if rooms[name]["reader_label_agreement"] < 0.9999:
+            raise AssertionError(f"{name}: read_s3dis_format labels disagree "
+                                 "with the room")
+    if len(reads) != len(SSP_ROOMS):
+        raise AssertionError(f"{len(reads)} reader calls for "
+                             f"{len(SSP_ROOMS)} rooms")
+    checks = []
+    if on_card:
+        # nn1 at the test room's read shape against the plain version on
+        # N_CHECK sampled queries
+        path = paths[SSP_ROOMS[0]]
+        ann = torch.as_tensor(np.concatenate([
+            provider.read_rows(str(f))[:, :3]
+            for f in sorted(path.parent.glob("Annotations/*.txt"))
+        ]).astype(np.float32), device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        pick = torch.randint(0, len(ann), (N_CHECK,), device=dev, generator=g)
+        checks.append(compare_nn1(torch.as_tensor(reads[0][0][0], device=dev),
+                                  ann, f"SSP {SSP_ROOMS[0]} read shape",
+                                  rows=pick)[0])
+    for step in steps:
+        if step["solve"]["cc_capped"]:
+            raise AssertionError(f"an in-loop CC call stopped at its cap: "
+                                 f"{step}")
+    if not np.isfinite([e["loss"] for e in epochs]).all():
+        raise AssertionError(f"an SSP loss is not finite: {epochs}")
+    repeat = True
+    for name in SSP_ROOMS:
+        _, _, in_comp = ssp_generate.generate_partition(
+            g_trainer, g_loss, g_loader, structures[name], dev)
+        repeat &= np.array_equal(in_comp, spgs[name][2])
+    print(f"[ssp] two ssp_generate runs give bit-equal partitions: {repeat}",
+          flush=True)
+    if not repeat:
+        raise AssertionError("ssp_generate's partitions differ between runs")
+    readable = {spg_readable(*spgs[n], tmp) for n in SSP_ROOMS}
+    structure = structure_vs_cpu(reads[0][0], structures[SSP_ROOMS[0]], dev)
+
+    # one fixed batch of the 4 training rooms, no augmentation
+    fixed = dataclasses.replace(loader_cfg, pc_augm_rot=False,
+                                pc_augm_jitter=False)
+    rs_fixed = np.random.RandomState(SEED)
+    batch = graph_collate([graph_loader(structures[n], True, fixed, rs_fixed)
+                           for n in train_names])
+    fresh = ssp_trainer_factory(model_cfg, loss_cfg, trainer.model.state_dict())
+    # card against CPU: one step, the CPU given the card's loss weights
+    w_t = fresh(dev)
+    emb = w_t.embed_train(batch)
+    weights, _, _ = w_t.host_weights(emb, batch)
+    del w_t, emb
+    check_cpu = card_vs_cpu(fresh, batch, bn_fed_biases(trainer.model),
+                            "(ssp) one step, card vs CPU",
+                            record=ssp_step_record(weights), device=dev)
+    # why the CPU's side is float64: each float32 step, on the float64
+    # step's branches, its largest gradient error from it over the
+    # tensor's largest (the biases zero by construction and those before a
+    # pool aside)
+    step = ssp_step_record(weights)
+    ref = fresh("cpu")
+    with branches(ref.model) as on_f64:
+        f64 = step(ref, batch)[1]
+    aside = bn_fed_biases(trainer.model) | {
+        f"{p}convs.{len(n.convs) - 2}.bias"
+        for p, n in pooling_nets(trainer.model)}
+    f32_vs_f64 = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        t32 = fresh(d, torch.float32)
+        with branches(t32.model, follow=on_f64):
+            g32 = step(t32, batch)[1]
+        f32_vs_f64[side] = max(
+            (float(np.abs(g32[k] - g).max() / np.abs(g).max()), k)
+            for k, g in f64.items() if k not in aside and np.abs(g).max())
+    print(f"[ssp] float32 steps on the CPU's float64 step's branches: "
+          f"largest gradient error from it over its tensor's largest "
+          f"{json.dumps(f32_vs_f64)}", flush=True)
+    # the in-loop partition of the trained embedder's training-mode
+    # embeddings: the device solver against the host exact one
+    q_t = fresh(dev)
+    with torch.no_grad():
+        emb = q_t.embed_train(batch)
+        diff = losses.compute_dist(emb, torch.as_tensor(batch["edg_source"],
+                                                        device=dev),
+                                   torch.as_tensor(batch["edg_target"],
+                                                   device=dev),
+                                   loss_cfg.dist_type).cpu().numpy()
+    emb = emb.cpu().numpy()
+    es, et = batch["edg_source"], batch["edg_target"]
+    f = np.hstack([emb, loss_cfg.spatial_emb * batch["xyz"]]).astype(np.float64)
+    w = (np.exp(diff * loss_cfg.edge_weight_threshold)
+         / np.exp(loss_cfg.edge_weight_threshold)).astype(np.float64)
+    reg = loss_cfg.reg_strength / (4 * loss_cfg.k_nn_adj)
+    quality = {}
+    for backend in ("device", "exact"):
+        t0 = time.perf_counter()
+        comps, in_comp = losses.compute_partition(
+            dataclasses.replace(loss_cfg, cp_backend=backend), emb, es, et,
+            diff, batch["xyz"], dev)
+        quality[backend] = {
+            "seconds": time.perf_counter() - t0, "n_comp": len(comps),
+            "energy": _energy(f, np.ones(len(f)), in_comp.astype(np.int64),
+                              es, et, w, reg)[0]}
+        if backend == "device":
+            quality["device"]["solve"] = dict(cutpursuit_band.LAST_SOLVE_STATS)
+    quality["energy_ratio"] = (quality["device"]["energy"]
+                               / quality["exact"]["energy"])
+    quality["n_comp_ratio"] = (quality["device"]["n_comp"]
+                               / quality["exact"]["n_comp"])
+    print(f"[ssp] in-loop partition, device vs exact: {json.dumps(quality)}; "
+          f"bounds energy x{QUALITY_BOUNDS['energy_ratio']}, components "
+          f"{QUALITY_BOUNDS['n_comp_ratio']}", flush=True)
+    lo, hi = QUALITY_BOUNDS["n_comp_ratio"]
+    if not (quality["energy_ratio"] <= QUALITY_BOUNDS["energy_ratio"]
+            and lo <= quality["n_comp_ratio"] <= hi
+            and quality["device"]["solve"]["cc_capped"] == 0):
+        raise AssertionError(f"the in-loop device solve is outside its "
+                             f"bounds: {quality}")
+
+    # SSP_OVERFIT_STEPS steps on the fixed batch, each split by CUDA events
+    # into embed / host weights (the in-loop solve timed apart on the host
+    # clock) / loss + backward + Adam
+    fit = fresh(dev)
+
+    def stamp():
+        if not on_card:
+            return time.perf_counter()
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def ms(a, b):
+        return a.elapsed_time(b) if on_card else (b - a) * 1e3
+
+    fit_losses, split = [], []
+    with recorded(losses, "compute_partition") as solves:
+        for _ in range(SSP_OVERFIT_STEPS):
+            e0 = stamp()
+            emb = fit.embed_train(batch)
+            e1 = stamp()
+            weights, _, _ = fit.host_weights(emb, batch)
+            e2 = stamp()
+            fit_losses.append(float(fit.loss_and_grads(emb, batch, weights)))
+            fit.apply_grads()
+            e3 = stamp()
+            if on_card:
+                torch.cuda.synchronize(dev)
+            split.append([ms(e0, e1), ms(e1, e2), ms(e2, e3)])
+    warm = np.array(split[3:])
+    step_ms = {"embed": float(warm[:, 0].mean()),
+               "host_weights": float(warm[:, 1].mean()),
+               "of_which_solve": float(
+                   np.mean([sec for _, sec in solves[3:]]) * 1e3),
+               "loss_backward_adam": float(warm[:, 2].mean()),
+               "total": float(warm.sum(1).mean()),
+               "steps_timed": len(warm), "vertices": len(batch["xyz"]),
+               "edges": len(es)}
+    ratio = fit_losses[-1] / fit_losses[0]
+    print(f"[ssp] {SSP_OVERFIT_STEPS} steps on one batch: loss "
+          f"{fit_losses[0]:.4f} -> {fit_losses[-1]:.4f} (x{ratio:.4f}); step "
+          f"ms {json.dumps(step_ms)}", flush=True)
+    if not (np.isfinite(fit_losses).all() and fit_losses[-1] < fit_losses[0]):
+        raise AssertionError(f"{SSP_OVERFIT_STEPS} steps on one batch: loss "
+                             f"x{ratio:.4f}")
+    out = {
+        "rooms": rooms, "write_s": write_s, "nn1_launches": launches,
+        "epochs": epochs, "steps": steps, "evaluate_test_room": summary,
+        "generate_repeat_equal": repeat, "spg_check": sorted(readable),
+        "structure_vs_cpu": structure, "card_vs_cpu": check_cpu,
+        "f32_vs_f64": f32_vs_f64,
+        "inloop_quality": quality,
+        "overfit": {"first": fit_losses[0], "last": fit_losses[-1],
+                    "ratio": ratio},
+        "step_ms": step_ms,
+        "max_memory_allocated_gib": (
+            torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"[ssp] phase {out['phase_s']:.1f} s, peak "
+          f"{out['max_memory_allocated_gib']} GiB", flush=True)
     return launches, checks, out
 
 
@@ -974,7 +1398,13 @@ def main() -> int:
         scan_launches, checks_scan, (s_vox, s_chunks) = scan_phase(dev, tmp)
     checks += checks_scan
 
-    # ---- 11. nn1 at its shapes: kernel, plain (on plain_rows sampled
+    # ---- 11. the supervised partition; only its own nn1 launches are
+    # counted
+    with tempfile.TemporaryDirectory() as tmp:
+        ssp_launches, checks_ssp, ssp = ssp_phase(dev, tmp)
+    checks += checks_ssp
+
+    # ---- 12. nn1 at its shapes: kernel, plain (on plain_rows sampled
     # queries where given), library, bound
     shapes = []
     for (db, q, check, name) in (
@@ -993,7 +1423,7 @@ def main() -> int:
             "splits": nn1_plan(len(q), len(db))[0]})
         print(f"[time] nn1 {json.dumps(shapes[-1])}", flush=True)
 
-    # ---- 12. result lines; the top-level numbers are the read shape's
+    # ---- 13. result lines; the top-level numbers are the read shape's
     # (1M x 1M, the largest launch of the room path)
     read = shapes[0]
     kernels = [{
@@ -1003,14 +1433,14 @@ def main() -> int:
         "replaces": "superpoint_graph_tpu/ops/nn1_pallas.py:27",
         "launches": launches,
         "launches_by_path": {"room": launches, "train": train_launches,
-                             "scan": scan_launches},
+                             "scan": scan_launches, "ssp": ssp_launches},
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         **{k: read[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "shape")},
         "shapes": shapes,
         "ptxas": [line for line in ptxas.splitlines() if "Used" in line],
     }]
-    print(json.dumps({"kernels": kernels, "train": train}))
+    print(json.dumps({"kernels": kernels, "train": train, "ssp": ssp}))
     print(f"[card] {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ counts and `class_weights`; reference s3dis_dataset.py:72-162,
 sema3d_dataset.py), whose module imports h5py at top level.
 `parsed_entries` builds the same per-component arrays straight from a
 partition, with no h5 round trip; the file functions import h5py only when
-called. The vKITTI row style and the RANSAC plane elevation (sklearn) wait
-for the vKITTI reader (ROADMAP queue 1 item 2) and raise.
+called. The plane elevation is the RANSAC fit of utils/ransac.py (the JAX
+package's sklearn RANSACRegressor, copied). The vKITTI row style waits for
+the vKITTI reader (ROADMAP queue 1 item 2) and raises.
 
 Row layouts: s3dis, 15 columns: [xyz, rgb/255-0.5, elevation, lpsv-0.5,
 xyz normalised to the room box, distance to the room centre]; sema3d, 11
@@ -21,12 +22,13 @@ import random
 
 import numpy as np
 
+from ..utils.ransac import plane_elevation as _plane_elevation
 
-def _not_ported(style: str, plane_elevation: bool):
-    if style == "vkitti" or plane_elevation:
+
+def _not_ported(style: str):
+    if style == "vkitti":
         raise NotImplementedError(
-            "the vKITTI row style and the RANSAC plane elevation are not "
-            "ported yet (ROADMAP queue 1 item 2)")
+            "the vKITTI row style is not ported yet (ROADMAP queue 1 item 2)")
     if style not in ("s3dis", "sema3d"):
         raise ValueError(f"style={style!r}: 's3dis' or 'sema3d'")
 
@@ -36,12 +38,14 @@ def build_point_matrix(xyz, rgb, geof, style: str = "s3dis",
                        elevation=None) -> np.ndarray:
     """The parsed per-point row matrix of a cloud (column layout in
     data/loader.py), style "s3dis" or "sema3d"; the elevation is the one
-    given, else the simple z/4 - 0.5 (s3dis_dataset.py:135-136)."""
-    _not_ported(style, plane_elevation)
+    given, else with plane_elevation z above the RANSAC ground plane
+    (s3dis_dataset.py:127-133), else the simple z/4 - 0.5 (:135-136)."""
+    _not_ported(style)
     xyz = np.asarray(xyz, np.float32)
     rgbn = np.asarray(rgb, np.float32) / 255.0 - 0.5
     if elevation is None:
-        elevation = xyz[:, 2] / 4.0 - 0.5
+        elevation = (_plane_elevation(xyz) if plane_elevation
+                     else xyz[:, 2] / 4.0 - 0.5)
     e = np.asarray(elevation)[:, None].astype(np.float32)
     lpsv = geof.astype(np.float32) - 0.5
     if style == "sema3d":
@@ -106,7 +110,7 @@ def preprocess_pointclouds(root: str, dataset: str = "s3dis",
     folder). Styles "s3dis" and "sema3d" (JAX parsed.py:94-175)."""
     import h5py
 
-    _not_ported(dataset, plane_elevation)
+    _not_ported(dataset)
     spg_root = os.path.join(root, "superpoint_graphs")
     feat_dirname = "features_supervision" if supervized else "features"
     folders = sorted(d for d in os.listdir(spg_root)
@@ -133,6 +137,7 @@ def preprocess_pointclouds(root: str, dataset: str = "s3dis",
             class_count[:, fi] += np.bincount(
                 hard, minlength=n_classes)[:n_classes]
             P = build_point_matrix(xyz, rgb, geof, style=dataset,
+                                   plane_elevation=plane_elevation,
                                    elevation=elevation)
             with h5py.File(os.path.join(spg_root, folder, fname), "r") as f:
                 numc = len(f["components"].keys())

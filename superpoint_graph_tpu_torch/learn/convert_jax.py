@@ -7,7 +7,10 @@ with one repair: a `b` token maps to `ecc/{d}_bn`, the name the flax
 GraphNetwork gives that layer, where the JAX package's map adds a
 `MaskedBatchNorm_0` level that does not exist.
 
-`flax_to_state_dict` inverts that map rather than restating it: every entry
+`convert_local_embedder` is the same map for the supervised partition's
+LocalEmbedder (superpoint_graph_tpu/ssp/embed.py).
+
+`flax_to_state_dict` inverts either map rather than restating it: every entry
 of the port's state dict is replaced by the positions of its elements, the
 positions are pushed through `convert_state_dict`, and each flax leaf then
 says where its values go. The inverse is therefore exact by construction,
@@ -48,10 +51,13 @@ class _TreeBuilder:
                       np.asarray(sd[f"{torch_prefix}.weight"], np.float32))
             self._set(self.params, flax_path + ("bias",),
                       np.asarray(sd[f"{torch_prefix}.bias"], np.float32))
-        self._set(self.batch_stats, flax_path + ("mean",),
-                  np.asarray(sd[f"{torch_prefix}.running_mean"], np.float32))
-        self._set(self.batch_stats, flax_path + ("var",),
-                  np.asarray(sd[f"{torch_prefix}.running_var"], np.float32))
+        if f"{torch_prefix}.running_mean" in sd:  # not a GroupNormRow
+            self._set(self.batch_stats, flax_path + ("mean",),
+                      np.asarray(sd[f"{torch_prefix}.running_mean"],
+                                 np.float32))
+            self._set(self.batch_stats, flax_path + ("var",),
+                      np.asarray(sd[f"{torch_prefix}.running_var"],
+                                 np.float32))
 
     @staticmethod
     def _set(tree, path, value):
@@ -63,14 +69,15 @@ class _TreeBuilder:
 
 def _convert_stack(tb, sd, torch_prefix, flax_prefix, n_conv, n_fc,
                    dense_base=0, norm_base=0, prelast_do=0.0,
-                   fc_last_plain=True):
+                   fc_last_plain=True, norm_module="MaskedBatchNorm_0"):
     """Conv1d stack + fc stack shared by PointNet/STNkD (pointnet.py:34-47,
-    83-110). Returns the next dense/norm indices."""
+    83-110); `norm_module` is the flax name of the norm inside each
+    _NormAct. Returns the next dense/norm indices."""
     di, ni = dense_base, norm_base
     for i in range(n_conv):
         tb.dense(flax_prefix + (f"Dense_{di}",), sd,
                  f"{torch_prefix}.convs.{3 * i}", conv=True)
-        tb.bn(flax_prefix + (f"_NormAct_{ni}", "MaskedBatchNorm_0"), sd,
+        tb.bn(flax_prefix + (f"_NormAct_{ni}", norm_module), sd,
               f"{torch_prefix}.convs.{3 * i + 1}")
         di += 1
         ni += 1
@@ -82,7 +89,7 @@ def _convert_stack(tb, sd, torch_prefix, flax_prefix, n_conv, n_fc,
         j += 1
         last = i == n_fc - 1
         if not last or not fc_last_plain:
-            tb.bn(flax_prefix + (f"_NormAct_{ni}", "MaskedBatchNorm_0"), sd,
+            tb.bn(flax_prefix + (f"_NormAct_{ni}", norm_module), sd,
                   f"{torch_prefix}.fcs.{j}")
             ni += 1
             j += 2  # BN + ReLU
@@ -216,6 +223,28 @@ def convert_state_dict(sd, model) -> dict:
 
 
 
+def convert_local_embedder(sd, model) -> dict:
+    """The torch -> flax map of the SSP LocalEmbedder (ssp/embed.py): its
+    STN ("stn": conv and fc stacks, every layer normed, then the
+    projection) and its PointNet ("ptn", no inner STN). Returns
+    {"params": ..., "batch_stats": ...} of numpy arrays."""
+    sd = {k: v.detach().cpu().numpy() if hasattr(v, "detach") else v
+          for k, v in sd.items()}
+    cfg = model.cfg
+    norm_module = ("MaskedBatchNorm_0" if cfg.ptn_norm == "batch"
+                   else "GroupNormRow_0")
+    tb = _TreeBuilder()
+    if model.stn is not None:
+        n_conv, n_fc = len(cfg.ptn_widths_stn[0]), len(cfg.ptn_widths_stn[1])
+        di, _ = _convert_stack(tb, sd, "stn", ("stn",), n_conv, n_fc,
+                               fc_last_plain=False, norm_module=norm_module)
+        tb.dense(("stn", f"Dense_{di}"), sd, "stn.proj")
+    _convert_stack(tb, sd, "ptn", ("ptn",), len(cfg.ptn_widths[0]),
+                   len(cfg.ptn_widths[1]), prelast_do=cfg.ptn_prelast_do,
+                   norm_module=norm_module)
+    return {"params": tb.params, "batch_stats": tb.batch_stats}
+
+
 def _leaves(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -230,9 +259,12 @@ def _get(tree, path):
     return tree
 
 
-def flax_to_state_dict(variables: dict, model) -> dict:
+def flax_to_state_dict(variables: dict, model,
+                       convert=convert_state_dict) -> dict:
     """{"params", "batch_stats"} flax tree (numpy or jax arrays) -> a state
-    dict for `model` (the port's SpgModel), float32 CPU tensors."""
+    dict for `model` (the port's SpgModel; with
+    convert=convert_local_embedder, the SSP LocalEmbedder), float32 CPU
+    tensors."""
     sd = model.state_dict()
     sizes = [v.numel() for v in sd.values()]
     total = sum(sizes)
@@ -245,7 +277,7 @@ def flax_to_state_dict(variables: dict, model) -> dict:
     }
     flat = np.full(total, np.nan, np.float32)
     hits = np.zeros(total, np.int64)
-    for coll, tree in convert_state_dict(probe, model).items():
+    for coll, tree in convert(probe, model).items():
         for path, pos in _leaves(tree):
             value = np.asarray(_get(variables[coll], path), np.float32)
             if value.shape != pos.shape:

@@ -5,7 +5,9 @@
 predictions, mIoU over the classes seen, mAcc over all classes.
 `compute_OOA` carries the JAX package's (reference metrics.py:102-108),
 vectorised; `disconnected_labels` the connectivity audit of
-tools/partition_quality.py."""
+tools/partition_quality.py. The supervised partition's boundary recall and
+precision, `mode` and `perfect_prediction` are the JAX package's
+(learn/metrics.py:62-106)."""
 from __future__ import annotations
 
 import numpy as np
@@ -87,3 +89,45 @@ def disconnected_labels(in_comp, src, tgt) -> int:
                    shape=(n, n))
     return int(connected_components(g, directed=False)[0]
                - (int(in_comp.max()) + 1))
+
+
+def compute_predicted_transitions(in_component, edg_source, edg_target):
+    """Edges whose ends lie in different components."""
+    return in_component[edg_source] != in_component[edg_target]
+
+
+def compute_boundary_recall(is_transition, pred_transitions):
+    """Share of the true transition edges predicted as transitions, in
+    percent (reference metrics.py)."""
+    return (100.0 * ((is_transition == pred_transitions) * is_transition).sum()
+            / is_transition.sum())
+
+
+def compute_boundary_precision(is_transition, pred_transitions):
+    """Share of the predicted transition edges that are true ones, in
+    percent."""
+    return (100.0
+            * ((is_transition == pred_transitions) * pred_transitions).sum()
+            / pred_transitions.sum())
+
+
+def mode(array, only_freq=False):
+    """(most frequent value, its count), or the count alone; ties to the
+    lowest value."""
+    value, counts = np.unique(array, return_counts=True)
+    if only_freq:
+        return np.amax(counts)
+    return value[np.argmax(counts)], np.amax(counts)
+
+
+def perfect_prediction(components, labels):
+    """Majority-label oracle per component spread to its points (reference
+    provider.py:689-695): `labels` is the [n, n_classes + 1] histogram whose
+    column 0 counts unlabelled points; a component's label is the argmax
+    of its summed class columns (0-based class ids)."""
+    full_pred = np.zeros(labels.shape[0], dtype=np.int64)
+    for comp in components:
+        comp = np.asarray(comp, np.int64)
+        if len(comp):
+            full_pred[comp] = labels[comp, 1:].sum(0).argmax()
+    return full_pred

@@ -1,13 +1,14 @@
 """Normalisation and dropout layers with padding-mask support.
 
 Port of superpoint_graph_tpu/models/norm.py (`MaskedBatchNorm`,
-`instance_norm_row`). Parameter and buffer names are torch BatchNorm1d's
-(weight, bias, running_mean, running_var), so state dicts follow the
-reference's layout. In training mode the batch statistics cover the valid
-rows only (the JAX package pads its batches to static shapes; the reference
-filters invalid superpoints out before the net, pointnet.py:147-158), and
-the variance is the biased one both to normalise and in the running update
-(flax's, not torch BatchNorm1d's unbiased running variance).
+`GroupNormRow`, `instance_norm_row`). Parameter and buffer names are torch
+BatchNorm1d's (weight, bias, running_mean, running_var), so state dicts
+follow the reference's layout. In training mode the batch statistics cover
+the valid rows only (the JAX package pads its batches to static shapes;
+the reference filters invalid superpoints out before the net,
+pointnet.py:147-158), and the variance is the biased one both to normalise
+and in the running update (flax's, not torch BatchNorm1d's unbiased running
+variance).
 
 `recomputing()` marks the forward that torch.utils.checkpoint replays in
 backward (the PointNet memory monger, models/spgmodel.py): there the
@@ -84,6 +85,29 @@ class MaskedBatchNorm(nn.Module):
             y = torch.where(mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim)),
                             y, 0.0)
         return y
+
+
+class GroupNormRow(nn.Module):
+    """GroupNorm over the channel axis of each row ([..., C], groups of
+    C / num_groups channels), with a per-channel affine: the JAX package's
+    `GroupNormRow`, the reference's 'layer' (one group) and 'group' norm
+    modes (pointnet.py:30-36). No running statistics; the mask is not
+    needed (rows are normalised alone)."""
+
+    def __init__(self, num_groups: int, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[-1]
+        xg = x.reshape(x.shape[:-1] + (self.num_groups, c // self.num_groups))
+        mean = xg.mean(-1, keepdim=True)
+        var = xg.var(-1, unbiased=False, keepdim=True)
+        y = ((xg - mean) / torch.sqrt(var + self.eps)).reshape(x.shape)
+        return y * self.weight + self.bias
 
 
 class Dropout(nn.Module):

@@ -4,7 +4,9 @@ Port of superpoint_graph_tpu/models/pointnet.py (`STNkD`, `PointNet`;
 reference learning/pointnet.py:16-133) with the reference's module layout:
 `convs` = [Conv1x1, BN, ReLU]*, `fcs` = [Linear, BN, ReLU]* (+ Dropout before
 the last Linear when prelast_do > 0, its mask drawn from the generator the
-caller passes), `stn.proj`. Clouds are [n_sp, n_pts, C]
+caller passes), `stn.proj`. The norm is MaskedBatchNorm ("batch", the
+default) or a one-group GroupNormRow ("layer", and "group" at the JAX
+package's n_group of 1, which no caller changes): its `norm` option. Clouds are [n_sp, n_pts, C]
 (feature last, the JAX package's layout). Input widths are explicit: the STN
 sees the first `nfeat_stn` channels, the conv stack all `nfeat`.
 """
@@ -16,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .norm import Dropout, MaskedBatchNorm
+from .norm import Dropout, GroupNormRow, MaskedBatchNorm
 
 
 class Conv1x1(nn.Module):
@@ -49,10 +51,19 @@ def max_pool(x):
     return x.amax(1)
 
 
-def _conv_stack(n_in: int, widths: Sequence[int]) -> nn.Sequential:
+def make_norm(norm: str, width: int) -> nn.Module:
+    if norm == "batch":
+        return MaskedBatchNorm(width)
+    if norm in ("layer", "group"):
+        return GroupNormRow(1, width)
+    raise ValueError(f"unknown norm {norm!r}")
+
+
+def _conv_stack(n_in: int, widths: Sequence[int],
+                norm: str = "batch") -> nn.Sequential:
     layers = []
     for w in widths:
-        layers += [Conv1x1(n_in, w), MaskedBatchNorm(w), nn.ReLU()]
+        layers += [Conv1x1(n_in, w), make_norm(norm, w), nn.ReLU()]
         n_in = w
     return nn.Sequential(*layers)
 
@@ -62,13 +73,13 @@ class STNkD(nn.Module):
     zero-initialised projection)."""
 
     def __init__(self, nfeat: int, nf_conv: Sequence[int],
-                 nf_fc: Sequence[int], k: int = 2):
+                 nf_fc: Sequence[int], k: int = 2, norm: str = "batch"):
         super().__init__()
         self.k = k
-        self.convs = _conv_stack(nfeat, nf_conv)
+        self.convs = _conv_stack(nfeat, nf_conv, norm)
         layers, n_in = [], nf_conv[-1]
         for w in nf_fc:
-            layers += [nn.Linear(n_in, w), MaskedBatchNorm(w), nn.ReLU()]
+            layers += [nn.Linear(n_in, w), make_norm(norm, w), nn.ReLU()]
             n_in = w
         self.fcs = nn.Sequential(*layers)
         self.proj = nn.Linear(n_in, k * k)
@@ -81,21 +92,21 @@ class STNkD(nn.Module):
 
 
 class PointNet(nn.Module):
-    """Superpoint embedder (reference pointnet.py:63-133), batch norm."""
+    """Superpoint embedder (reference pointnet.py:63-133)."""
 
     def __init__(self, nf_conv, nf_fc, nf_conv_stn, nf_fc_stn, nfeat: int,
                  nfeat_stn: int = 2, nfeat_global: int = 1,
-                 prelast_do: float = 0.5):
+                 prelast_do: float = 0.5, norm: str = "batch"):
         super().__init__()
         self.nfeat_stn = nfeat_stn
-        self.stn = (STNkD(nfeat_stn, nf_conv_stn, nf_fc_stn)
+        self.stn = (STNkD(nfeat_stn, nf_conv_stn, nf_fc_stn, norm=norm)
                     if nfeat_stn > 0 else None)
-        self.convs = _conv_stack(nfeat, nf_conv)
+        self.convs = _conv_stack(nfeat, nf_conv, norm)
         layers, n_in = [], nf_conv[-1] + nfeat_global
         for i, w in enumerate(nf_fc):
             layers.append(nn.Linear(n_in, w))
             if i < len(nf_fc) - 1:
-                layers += [MaskedBatchNorm(w), nn.ReLU()]
+                layers += [make_norm(norm, w), nn.ReLU()]
             if i == len(nf_fc) - 2 and prelast_do > 0:
                 layers.append(Dropout(prelast_do))
             n_in = w

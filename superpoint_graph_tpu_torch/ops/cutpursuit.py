@@ -1,9 +1,10 @@
 """l0 cut pursuit, host-exact solver (numpy + scipy max-flow).
 
 Carried over unchanged in behaviour from superpoint_graph_tpu/ops/cutpursuit.py
-(`cutpursuit`, `merge_regions`, `merge_rounds`, `_greedy_matching`,
-`_mincut_binary`), whose package `__init__` imports jax. Same `seed`,
-`max_iter` and `flow_steps`, so the labels equal the JAX package's oracle.
+(`cutpursuit`, `cutpursuit2`, `merge_regions`, `merge_rounds`,
+`_greedy_matching`, `_mincut_binary`), whose package `__init__` imports
+jax. Same `seed`, `max_iter` and `flow_steps`, so the labels equal the JAX
+package's oracle.
 The greedy matching runs as the plain Python scan (the JAX package may call
 its native C++ twin, same result).
 
@@ -11,7 +12,9 @@ Solves  argmin_x sum_i nw_i ||x_i - f_i||^2 + reg sum_(u,v) w_uv [x_u != x_v]
 over piecewise-constant x (Landrieu & Obozinski 2017, l0 variant). The
 pipeline runs it on request (`cp_backend="exact"`), as the oracle the device
 solver (ops/cutpursuit_band.py) is held to; `merge_regions` is also the
-device solver's host merge step.
+device solver's host merge step. `cutpursuit2` (node weights, the
+regularised values) is the Semantic3D label inpainting of the supervised
+partition (ssp/graph_processing.py).
 """
 from __future__ import annotations
 
@@ -200,9 +203,10 @@ def _densify_first_occurrence(labels: np.ndarray) -> np.ndarray:
 
 
 def cutpursuit(features, source, target, edge_weight, reg_strength,
-               cutoff: int = 0, max_iter: int = 10, flow_steps: int = 4,
-               seed: int = 0):
-    """Drop-in for `libcp.cutpursuit` (partition.py:177). Returns
+               cutoff: int = 0, node_weight=None, max_iter: int = 10,
+               flow_steps: int = 4, seed: int = 0):
+    """Drop-in for `libcp.cutpursuit` (partition.py:177, losses.py:82);
+    `node_weight` [n] weighs each vertex's fidelity (default 1). Returns
     (components: list of uint32 index arrays, in_component int32 [n])."""
     f = np.ascontiguousarray(features, dtype=np.float64)
     if f.ndim == 1:
@@ -211,7 +215,8 @@ def cutpursuit(features, source, target, edge_weight, reg_strength,
     src = np.asarray(source, dtype=np.int64)
     tgt = np.asarray(target, dtype=np.int64)
     w = np.asarray(edge_weight, dtype=np.float64)
-    nw = np.ones(n)  # node weights (cutpursuit2 of SSP sets them)
+    nw = (np.ones(n) if node_weight is None
+          else np.asarray(node_weight, dtype=np.float64))
     reg = float(reg_strength)
     del seed  # the solver draws no random numbers; kept for the libcp signature
 
@@ -282,3 +287,30 @@ def cutpursuit(features, source, target, edge_weight, reg_strength,
         _, in_comp32 = connected_components(n, src, tgt, active, cutoff)
         in_comp = in_comp32.astype(np.int64)
     return group_components(in_comp), in_comp.astype(np.int32)
+
+
+def cutpursuit2(values, source, target, edge_weight, node_weight,
+                reg_strength, **kw):
+    """Drop-in for `libcp.cutpursuit2` (graph_processing.py:164): the l0
+    problem with per-node fidelity weights. Returns the regularised
+    piecewise-constant values (each region's weighted mean; a region of
+    zero weight takes the weighted mean of all values) and the region of
+    each vertex, int32 [n]."""
+    v = np.ascontiguousarray(values, dtype=np.float64)
+    if v.ndim == 1:
+        v = v[:, None]
+    nw = np.asarray(node_weight, dtype=np.float64)
+    _, in_comp = cutpursuit(v, source, target, edge_weight, reg_strength,
+                            node_weight=nw, **kw)
+    n_comp = in_comp.max() + 1
+    wsum = np.zeros(n_comp)
+    np.add.at(wsum, in_comp, nw)
+    acc = np.zeros((n_comp, v.shape[1]))
+    np.add.at(acc, in_comp, v * nw[:, None])
+    glob = v[nw > 0].mean(axis=0) if (nw > 0).any() else v.mean(axis=0)
+    mean = np.where((wsum <= 0)[:, None], glob[None, :],
+                    acc / np.maximum(wsum, 1e-12)[:, None])
+    values_reg = mean[in_comp].astype(np.float32)
+    if np.ndim(values) == 1:
+        values_reg = values_reg[:, 0]
+    return values_reg, in_comp

@@ -314,8 +314,31 @@ def knn_bigcloud(xyz: torch.Tensor, k: int):
     return out_i, out_d, info
 
 
+def _merge_delaunay(graph: dict, xyz: np.ndarray, voronoi: float) -> None:
+    """The Delaunay edges shorter (squared) than `voronoi` merged into the
+    kNN edges of `graph` in place: (source, target) pairs deduplicated in
+    order of source + n * target, distances recomputed."""
+    from scipy.spatial import Delaunay
+
+    n = len(xyz)
+    tets = Delaunay(np.asarray(xyz, np.float64)).simplices
+    pairs = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+    vsrc = np.concatenate([tets[:, a] for a, _ in pairs]).astype(np.int64)
+    vtgt = np.concatenate([tets[:, b] for _, b in pairs]).astype(np.int64)
+    keep = ((xyz[vsrc] - xyz[vtgt]) ** 2).sum(1) < voronoi
+    src = np.concatenate([vsrc[keep], graph["source"].astype(np.int64)])
+    tgt = np.concatenate([vtgt[keep], graph["target"].astype(np.int64)])
+    _, uniq = np.unique(src + np.int64(n) * tgt, return_index=True)
+    graph["source"] = src[uniq].astype(np.uint32)
+    graph["target"] = tgt[uniq].astype(np.uint32)
+    graph["distances"] = np.sqrt(
+        ((xyz[graph["source"]] - xyz[graph["target"]]) ** 2).sum(1)
+    ).astype(np.float32)
+
+
 def compute_graph_nn_2(xyz: np.ndarray, k_nn_adj: int, k_nn_geof: int,
-                       device=None, return_device: bool = False):
+                       device=None, return_device: bool = False,
+                       voronoi: float = 0.0):
     """Adjacency graph + geof neighbour table from ONE search at k_nn_geof
     (reference graphs.py:26-73): brute force up to BIGCLOUD_THRESHOLD
     points, `knn_bigcloud` above. Returns (graph dict of numpy {is_nn,
@@ -323,7 +346,10 @@ def compute_graph_nn_2(xyz: np.ndarray, k_nn_adj: int, k_nn_geof: int,
     int64 tensor on `device`, default the card). With `return_device`, also
     the search's tables on `device`, {"idx": [n, k_nn_geof] int64, "d2":
     [n, k_nn_geof] f32}, for the device cut pursuit (the JAX version's
-    `dev`, without pad rows)."""
+    `dev`, without pad rows). With `voronoi > 0` the edges of the Delaunay
+    tetrahedra shorter (squared) than `voronoi` join the kNN edges,
+    deduplicated, with distances of the merged set (graphs.py:42-64, the
+    JAX version's host code)."""
     device = card_unless(device)
     assert k_nn_adj <= k_nn_geof
     n = len(xyz)
@@ -341,6 +367,8 @@ def compute_graph_nn_2(xyz: np.ndarray, k_nn_adj: int, k_nn_geof: int,
         "target": idx_adj.reshape(-1).astype(np.uint32),
         "distances": dist.reshape(-1).astype(np.float32),
     }
+    if voronoi > 0:
+        _merge_delaunay(graph, np.asarray(xyz), voronoi)
     if return_device:
         return graph, idx, {"idx": idx, "d2": d2}
     return graph, idx

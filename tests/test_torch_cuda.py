@@ -231,3 +231,82 @@ def test_train_step_on_card_matches_cpu(dev):
     batch = SpgBatch(**{k: torch.as_tensor(v, device=dev)
                         for k, v in a.items()})
     card_vs_cpu(fresh, batch, bn_fed_biases(model))
+
+
+# ---------------------------------------------------------------- SSP
+def _ssp_batch(rng, n=4000, k=5, k_local=20):
+    """A collated SSP batch (host arrays): a cloud of n points in 8
+    objects, its kNN edges, local clouds and globals at the recipe's
+    widths."""
+    xyz = (rng.rand(n, 3) * [4.0, 4.0, 2.0]).astype(np.float32)
+    objects = (xyz[:, 0] // 1.0 + 4 * (xyz[:, 1] // 2.0)).astype(np.int64)
+    d2 = ((xyz[:, None, :] - xyz[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    nb = np.argsort(d2, 1)[:, :k_local]
+    es = np.repeat(np.arange(n), k)
+    et = nb[:, :k].reshape(-1)
+    clouds = np.concatenate([xyz[nb] - xyz[:, None], rng.rand(n, k_local, 3)],
+                            2).astype(np.float32)
+    return {"clouds": clouds,
+            "clouds_global": rng.rand(n, 7).astype(np.float32),
+            "edg_source": es, "edg_target": et,
+            "is_transition": (objects[es] != objects[et]).astype(np.int32),
+            "objects": objects, "xyz": xyz, "labels": np.zeros(1)}
+
+
+def test_ssp_embedder_on_card_matches_cpu(dev):
+    """The SSP LocalEmbedder at the recipe's widths on the card (float32)
+    against the same weights on the CPU in float64, the reference:
+    embeddings within 1e-4 in eval and in training mode (float32's own
+    rounding here is ~4e-5 on either device, PERF.md), the running
+    statistics of the training forward within 1e-5."""
+    from superpoint_graph_tpu_torch.ssp.embed import (LocalEmbedder,
+                                                      SspModelConfig)
+
+    rng = np.random.RandomState(0)
+    batch = _ssp_batch(rng)
+    model = LocalEmbedder(SspModelConfig())
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    card = LocalEmbedder(SspModelConfig())
+    card.load_state_dict(model.state_dict())
+    card.to(dev)
+    model.double()
+    args = [torch.as_tensor(batch[k]) for k in ("clouds", "clouds_global")]
+    for train in (False, True):
+        model.train(train)
+        card.train(train)
+        with torch.no_grad():
+            want = model(*(a.double() for a in args)).numpy()
+            got = card(*(a.to(dev) for a in args)).cpu().numpy()
+        np.testing.assert_allclose(got, want, atol=1e-4)
+    for (k, a), b in zip(card.state_dict().items(),
+                         model.state_dict().values()):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5,
+                                   err_msg=k)
+
+
+def test_ssp_step_on_card_matches_cpu(dev):
+    """One SSP training step at the recipe's widths (chip_smoke.py's SSP
+    check): the card's in-loop device partition gives the loss weights,
+    then learn/train_check.py's card_vs_cpu holds the card's float32 step
+    on those weights to the CPU's in float64, the reference
+    (ssp_trainer_factory): loss 1e-5 relative, gradients 1e-4 of each
+    tensor's largest (each channel of a batch-norm bias before a max-pool
+    1e-6 of its cancelled sum, pool_residue_scales), running statistics
+    1e-5; near-tie branches followed as for the SPG model."""
+    from superpoint_graph_tpu_torch.learn.train_check import (
+        bn_fed_biases, card_vs_cpu, ssp_step_record, ssp_trainer_factory)
+    from superpoint_graph_tpu_torch.ssp.embed import SspModelConfig, SspTrainer
+    from superpoint_graph_tpu_torch.ssp.losses import SspLossConfig
+
+    rng = np.random.RandomState(1)
+    batch = _ssp_batch(rng)
+    model_cfg = SspModelConfig()
+    loss_cfg = SspLossConfig(cp_backend="device")
+    first = SspTrainer(model_cfg, loss_cfg, seed=0, device=dev)
+    fresh = ssp_trainer_factory(model_cfg, loss_cfg, first.model.state_dict())
+    emb = first.embed_train(batch)
+    weights, comps, _ = first.host_weights(emb, batch)
+    assert 1 < len(comps) < len(batch["xyz"])
+    card_vs_cpu(fresh, batch, bn_fed_biases(first.model), "SSP step",
+                record=ssp_step_record(weights), device=dev)

@@ -352,6 +352,12 @@ def _entry_point_calls():
     from superpoint_graph_tpu_torch.data import provider
     from superpoint_graph_tpu_torch.graph.spg_device import (
         compute_sp_graph_device)
+    from superpoint_graph_tpu_torch.cli import (ssp_evaluate, ssp_generate,
+                                                ssp_preprocess, ssp_train)
+    from superpoint_graph_tpu_torch.ssp import graph_processing as gp
+    from superpoint_graph_tpu_torch.ssp.embed import SspModelConfig, SspTrainer
+    from superpoint_graph_tpu_torch.ssp.losses import (SspLossConfig,
+                                                       compute_partition)
 
     xyz = np.random.RandomState(0).rand(50, 3).astype(np.float32)
     edges = np.arange(49), np.arange(1, 50)
@@ -384,6 +390,18 @@ def _entry_point_calls():
             xyz, xyz, *edges, np.ones(49), 0.1),
         "scan_batch": lambda: scan.scan_batch(None, 8),
         "label_scan": lambda: scan.label_scan("scan.txt", None),
+        "build_supervision_structure": lambda: gp.build_supervision_structure(
+            xyz, np.zeros((50, 3)), np.zeros(50, int), np.ones(50, int),
+            gp.SspPreprocessConfig(), 13),
+        "preprocess_file": lambda: ssp_preprocess.preprocess_file(
+            "room.txt", ssp_preprocess.parse_args([])),
+        "SspTrainer": lambda: SspTrainer(SspModelConfig(), SspLossConfig()),
+        "compute_partition": lambda: compute_partition(
+            SspLossConfig(cp_backend="device"), xyz, *edges, np.ones(49)),
+        "ssp_preprocess.main": lambda: ssp_preprocess.main([]),
+        "ssp_train.main": lambda: ssp_train.main([]),
+        "ssp_generate.main": lambda: ssp_generate.main([]),
+        "ssp_evaluate.main": lambda: ssp_evaluate.main([]),
     }
 
 
@@ -393,7 +411,10 @@ def _entry_point_calls():
     "partition_clouds", "cutpursuit_band", "collate_spg", "label_room",
     "read_semantic3d_format", "interpolate_labels_batch",
     "compute_sp_graph_device", "partition_cloud_big", "chunked_cutpursuit",
-    "scan_batch", "label_scan"])
+    "scan_batch", "label_scan", "build_supervision_structure",
+    "preprocess_file", "SspTrainer", "compute_partition",
+    "ssp_preprocess.main", "ssp_train.main", "ssp_generate.main",
+    "ssp_evaluate.main"])
 def test_entry_points_default_to_card(name):
     """Called without `device`, every entry point asks for the card, and
     raises where there is none rather than run on the CPU."""
@@ -404,9 +425,9 @@ def test_entry_points_default_to_card(name):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (cli/ included), and chip_smoke.py, imports
-    without jax, flax, h5py, pandas or any module of the JAX package (a
-    fresh interpreter)."""
+    """Every module of the port (cli/ and ssp/ included), and
+    chip_smoke.py, imports without jax, flax, h5py, pandas, sklearn or any
+    module of the JAX package (a fresh interpreter)."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import superpoint_graph_tpu_torch as p\n"
@@ -424,13 +445,24 @@ def test_port_imports_no_jax():
         "        'superpoint_graph_tpu_torch.utils.h5io',\n"
         "        'superpoint_graph_tpu_torch.cli.partition',\n"
         "        'superpoint_graph_tpu_torch.cli.train',\n"
-        "        'superpoint_graph_tpu_torch.cli.evaluate'} <= set(names), names\n"
+        "        'superpoint_graph_tpu_torch.cli.evaluate',\n"
+        "        'superpoint_graph_tpu_torch.ssp.graph_processing',\n"
+        "        'superpoint_graph_tpu_torch.ssp.losses',\n"
+        "        'superpoint_graph_tpu_torch.ssp.embed',\n"
+        "        'superpoint_graph_tpu_torch.ssp.evaluate',\n"
+        "        'superpoint_graph_tpu_torch.utils.ransac',\n"
+        "        'superpoint_graph_tpu_torch.ops.subgraph',\n"
+        "        'superpoint_graph_tpu_torch.cli.ssp_preprocess',\n"
+        "        'superpoint_graph_tpu_torch.cli.ssp_train',\n"
+        "        'superpoint_graph_tpu_torch.cli.ssp_generate',\n"
+        "        'superpoint_graph_tpu_torch.cli.ssp_evaluate'} <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = [m for m in ('jax', 'flax', 'h5py', 'pandas') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'h5py', 'pandas', 'sklearn')\n"
+        "       if m in sys.modules]\n"
         "bad += [m for m in sys.modules if m == 'superpoint_graph_tpu'\n"
         "        or m.startswith('superpoint_graph_tpu.')]\n"
         "assert not bad, bad\n"

@@ -213,3 +213,61 @@ def test_pool_fed_biases_have_zero_gradient():
     top_ptn[int(batch.cloud_mask.nonzero()[0]), 3] = 0.0
     assert pool_fed_biases(model, [pooled[0], top_ptn],
                            batch.cloud_mask) == {"ptn.stn.convs.4.bias"}
+
+
+def test_pool_residue_scales_bound_the_residue():
+    """The SSP LocalEmbedder (its STN and PointNet pool over each point's
+    20 neighbours) in float64 and float32 on the same batch and weights:
+    pool_residue_scales names the batch-norm bias before each pool; where
+    a channel is positive on every row its gradient is zero up to rounding
+    of its cancelled sum, the other channels' is real (minus the inactive
+    rows' upstream gradient). The float32 step is within
+    TRAIN_TOL["residue"] of each channel's cancelled sum and compare_steps
+    accepts it; an error of 1% of a real channel's gradient fails."""
+    from superpoint_graph_tpu_torch.learn.train_check import (
+        pool_residue_scales, ssp_step_record)
+    from superpoint_graph_tpu_torch.ssp.embed import (SspModelConfig,
+                                                      SspTrainer)
+    from superpoint_graph_tpu_torch.ssp.losses import SspLossConfig
+
+    rng = np.random.RandomState(3)
+    n, e = 600, 3000
+    clouds = rng.randn(n, 20, 6)
+    clouds[:3] = clouds[:3, :1]  # one point repeated: some maxima below 0
+    batch = {"clouds": clouds, "clouds_global": rng.rand(n, 7),
+             "edg_source": rng.randint(0, n, e),
+             "edg_target": rng.randint(0, n, e),
+             "is_transition": (rng.rand(e) < 0.3).astype(np.int32),
+             "objects": np.arange(n) // 50, "xyz": rng.rand(n, 3)}
+    cfg = SspModelConfig(ptn_widths=((16, 32), (18, 16, 4)),
+                         ptn_widths_stn=((8, 16), (16, 8)))
+    weights = rng.rand(e) + 0.5
+    steps = {}
+    for dtype in (torch.float64, torch.float32):
+        trainer = SspTrainer(cfg, SspLossConfig(), device="cpu", dtype=dtype)
+        with branches(trainer.model) as rec:
+            steps[dtype] = ssp_step_record(weights)(trainer, batch)
+        if dtype == torch.float64:
+            pooled = rec["pooled"][:2]
+            scales = pool_residue_scales(trainer.model, rec["pooled_grads"])
+    assert set(scales) == {"stn.convs.4.bias", "ptn.convs.4.bias"}
+    grads = steps[torch.float64][1]
+    for (name, scale), top_c in zip(scales.items(), pooled):
+        pos = (top_c > 0).all(0).numpy()
+        assert (np.abs(grads[name][pos]) <= 1e-12 * scale[pos]).all(), name
+    # the STN's gradients are 0 at its zero projection; the PointNet's
+    # pooled layer is partly positive, and its other channels are real
+    assert not pos.all()
+    real = np.abs(grads["ptn.convs.4.bias"][~pos])
+    assert (real > 1e-8 * scale[~pos]).all()
+    zero = bn_fed_biases(trainer.model)
+    out = compare_steps(steps[torch.float32], steps[torch.float64],
+                        "f32 against f64", zero, residue_scales=scales)
+    assert 0 < out["residue_rel_max"] <= TRAIN_TOL["residue"]
+    c = np.flatnonzero(~pos)[real.argmax()]
+    wrong = {k: v.copy() for k, v in steps[torch.float32][1].items()}
+    wrong["ptn.convs.4.bias"][c] += 0.01 * grads["ptn.convs.4.bias"][c]
+    with pytest.raises(AssertionError, match="gradients disagree"):
+        compare_steps((steps[torch.float32][0], wrong,
+                       steps[torch.float32][2]), steps[torch.float64],
+                      "a wrong real channel", zero, residue_scales=scales)
