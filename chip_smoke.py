@@ -105,7 +105,40 @@ one NVIDIA GPU.
    float64 one, the step split by CUDA events (embed / host weights, of
    which the solve / loss + backward + Adam), peak memory; under "ssp" in
    the JSON line.
-12. Timing at the nn1 shapes, with CUDA events: the kernel (mean of 3
+12. Submission writer (Semantic3D), in the scan phase's directory: its
+   array function (cli/write_semantic3d.write_submission) on the cold
+   scan's voxels, partition and predicted classes: reduced_labels2full,
+   interpolate_labels_batch (nn1 per chunk of 5e6 raw rows), one class a
+   line. Check: the .labels file equal, line for line, to label_scan's
+   class of every raw point. Printed: its seconds, the nn1 calls' share
+   (CUDA events), its own nn1 launches ("submission" in the kernel line).
+13. Custom dataset: one synthetic room of 300,000 points under data/train/
+   as a binary ply with labels, an ascii pcd with labels and a LAS 1.2
+   point format 3, another under data/test/ as an ascii ply without
+   labels; each reader's seconds and arrays (xyz within the format's
+   precision), cli/partition.partition_file at the CLI's defaults
+   (--n_labels 13, custom_dataset's classes) on each, the ply's
+   partition equal bit for bit to partition_cloud on the same arrays,
+   parsed rows in memory (custom_dataset style) and one training and one
+   test epoch of the flagship on the split (finite losses).
+14. vKITTI3D, SSP then SPG: six synthetic street frames
+   (data/synthetic.py::synthetic_street, 300,000-400,000 points, labels
+   0..13 with the don't-care 13) as npy, one a fold 01..06, through
+   cli/ssp_preprocess.preprocess_file (voxel 0.05), one cli/ssp_train
+   epoch at cvfold 1 (reg_strength 0.5, spatial_emb 0.2, CP_cutoff 25,
+   the device cut pursuit in every step), ssp_generate on all six,
+   ssp_evaluate on the test frame, then parsed rows in the vkitti style
+   and one SPG training and test epoch of the flagship on the learned
+   graphs. Checks: reader labels equal to the generator's after the
+   remap; the test frame's structure against the CPU's; the in-loop
+   device partition against the exact solver (QUALITY_BOUNDS, no capped
+   CC); generate bit-equal twice; finite losses. Printed: each frame's
+   voxels, transition share, preprocess and generate seconds, each step's
+   split (embed / host weights, of which the solve / the rest).
+15. Visualize: cli/visualize.write_clouds on the room phase's result, all
+   seven output types (igfprse); each ply read back with
+   read_ply_elements equals the arrays written.
+16. Timing at the nn1 shapes, with CUDA events: the kernel (mean of 3
    calls after a warm-up), the plain version (one call on the queries it
    was checked on: all of them, or the sampled rows), one PyTorch call of
    the same function (torch.cdist in its matrix-product mode + argmin, in
@@ -113,9 +146,10 @@ one NVIDIA GPU.
    flops a pair, the 3 FMAs of the expanded form, at 67 TFLOP/s, or the
    bytes at 3.35 TB/s if larger). The direct-mode torch.cdist yardstick
    (~21 minutes at 1M x 1M) lives in tools/nn1_cdist_direct.py.
-13. One JSON line with the kernel table (top-level numbers at the read
-   shape, 1M x 1M; every shape under "shapes"; launches of each path) and
-   the training and SSP phases' numbers, the card line, and last
+17. One JSON line with the kernel table (top-level numbers at the read
+   shape, 1M x 1M; every shape under "shapes"; launches of each path,
+   the submission writer's included) and the training, SSP, custom,
+   vKITTI and output phases' numbers, the card line, and last
    {"ok": true, "device": {...}}.
 
 Exits non-zero on any failure, when no CUDA device is visible, or when run
@@ -126,6 +160,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import importlib.util
 import json
 import subprocess
@@ -495,10 +530,10 @@ def chunked_vs_monolithic(r, cfg, dev):
 
 
 def scan_phase(dev, tmp):
-    """The Semantic3D serving path on a synthetic station (phase 9).
+    """The Semantic3D serving path on a synthetic station (phase 10).
     Returns (nn1 launches of the cold run, the nn1 checks of the spread
-    stage's chunks, and (the scan's voxels, its raw chunks) on the card for
-    the timing phase)."""
+    stage's chunks, (the scan's voxels, its raw chunks) on the card for
+    the timing phase, the cold run's ScanLabels, the scan's path)."""
     import pandas as pd
     import torch
 
@@ -604,7 +639,7 @@ def scan_phase(dev, tmp):
                                  "plain nn1")
         checks.append(check)
         chunks.append(q)
-    return launches, checks, (xyz, chunks)
+    return launches, checks, (xyz, chunks), r, path
 
 
 # the training phase: three more synthetic rooms partitioned by the
@@ -622,14 +657,19 @@ TIMED_STEPS, WARM_STEPS = 20, 3
 
 
 @contextlib.contextmanager
-def recorded(module, name):
+def recorded(module, name, sync=None):
     """Within: `module.<name>` runs as it is and appends each call's
-    (result, host seconds) to the yielded list."""
+    (result, host seconds) to the yielded list; with `sync` (a CUDA
+    device) the seconds end after the device has finished the call."""
+    import torch
+
     calls, orig = [], getattr(module, name)
 
     def wrapper(*args, **kwargs):
         t0 = time.perf_counter()
         out = orig(*args, **kwargs)
+        if sync is not None:
+            torch.cuda.synchronize(sync)
         calls.append((out, time.perf_counter() - t0))
         return out
 
@@ -865,14 +905,16 @@ SSP_OVERFIT_STEPS = 30
 SSP_CHECK_ROWS = 8192
 
 
-def structure_vs_cpu(raw, s, dev, rows=SSP_CHECK_ROWS):
-    """The card's supervision structure `s` of a room against the CPU's
+def structure_vs_cpu(raw, s, dev, rows=SSP_CHECK_ROWS, dataset="s3dis",
+                     voxel=0.03, tag="ssp"):
+    """The card's supervision structure `s` of a cloud against the CPU's
     from the reader's arrays `raw`: the prune on the CPU (voxels, rgb,
-    label histograms, objects, elevation, xyn bit-equal), then on
-    `rows` sampled voxels the CPU's exact kNN (the card's adjacency and
+    label histograms, elevation, xyn bit-equal; S3DIS's objects too), then
+    on `rows` sampled voxels the CPU's exact kNN (the card's adjacency and
     local tables' rows equal), geof (1e-5, 2e-2 on degenerate
-    neighbourhoods, the port's tolerance) and transitions (equal). Raises
-    outside them."""
+    neighbourhoods, the port's tolerance) and transitions (equal: where
+    the object (s3dis) or the hard label (vkitti) changes). Raises outside
+    them."""
     import torch
 
     from superpoint_graph_tpu_torch.ops.geof import compute_geof_rows
@@ -881,25 +923,30 @@ def structure_vs_cpu(raw, s, dev, rows=SSP_CHECK_ROWS):
     from superpoint_graph_tpu_torch.utils.ransac import plane_elevation
 
     t0 = time.perf_counter()
-    xyz, rgb, labels, objects = raw
+    xyz, rgb, labels = raw[:3]
+    objects = raw[3] if dataset == "s3dis" else None
     vx, vrgb, vlab, vobj = prune(
-        np.asarray(xyz, np.float32), 0.03, rgb, np.asarray(labels, np.int32),
-        np.asarray(objects, np.int32), 13, int(objects.max()) + 1,
-        device="cpu")
-    obj = vobj[:, 1:].argmax(1) + 1
+        np.asarray(xyz, np.float32), voxel, rgb, np.asarray(labels, np.int32),
+        None if objects is None else np.asarray(objects, np.int32), 13,
+        0 if objects is None else int(objects.max()) + 1, device="cpu")
     ma, mi = vx[:, :2].max(0, keepdims=True), vx[:, :2].min(0, keepdims=True)
     equal = {
         "voxels": np.array_equal(vx, s["xyz"]),
         "rgb": np.array_equal(vrgb.astype(np.float32), s["rgb"]),
         "labels": np.array_equal(vlab, s["labels"]),
-        "objects": np.array_equal(obj, s["objects"]),
         "elevation": np.array_equal(plane_elevation(vx).astype(np.float32),
                                     s["elevation"]),
         "xyn": np.array_equal(((vx[:, :2] - mi) / (ma - mi + 1e-8))
                               .astype(np.float32), s["xyn"]),
     }
+    if dataset == "s3dis":
+        key = vobj[:, 1:].argmax(1) + 1
+        equal["objects"] = np.array_equal(key, s["objects"])
+    else:
+        key = vlab.argmax(1)
     n, k = len(vx), s["target_local_geometry"].shape[1]
     k_adj = len(s["graph_nn"]["source"]) // n
+    rows = min(rows, n)
     pick = np.sort(np.random.RandomState(SEED).choice(n, rows, replace=False))
     x = torch.as_tensor(vx)
     idx, _ = knn_vs_db(x, torch.as_tensor(pick), k)
@@ -910,7 +957,7 @@ def structure_vs_cpu(raw, s, dev, rows=SSP_CHECK_ROWS):
         idx[:, :k_adj],
         s["graph_nn"]["target"].reshape(n, k_adj)[pick].astype(np.int64))
     equal["transition_rows"] = np.array_equal(
-        (obj[pick][:, None] != obj[idx[:, :k_adj]]).astype(np.uint8),
+        (key[pick][:, None] != key[idx[:, :k_adj]]).astype(np.uint8),
         s["is_transition"].reshape(n, k_adj)[pick])
     geof = compute_geof_rows(x, x[pick], torch.as_tensor(idx)).numpy()
     geof[:, 3] *= 2.0
@@ -918,11 +965,65 @@ def structure_vs_cpu(raw, s, dev, rows=SSP_CHECK_ROWS):
     out = {"rows": rows, "equal": equal, "geof_max_abs": float(err.max()),
            "geof_rows_within_1e-5": float((err.max(1) <= 1e-5).mean()),
            "seconds": time.perf_counter() - t0}
-    print(f"[ssp] structure card vs CPU: {json.dumps(out)}", flush=True)
+    print(f"[{tag}] structure card vs CPU: {json.dumps(out)}", flush=True)
     if not (all(equal.values()) and out["geof_max_abs"] <= 2e-2
             and out["geof_rows_within_1e-5"] >= 0.99):
         raise AssertionError(f"the SSP structure differs on the CPU: {out}")
     return out
+
+
+def inloop_vs_exact(trainer, loss_cfg, batch, dev, tag="ssp"):
+    """The in-loop partition of `trainer`'s training-mode embeddings of
+    `batch`: the device solver against the host exact one on the same
+    energy (QUALITY_BOUNDS energy and components, no capped CC call;
+    raises outside them). Returns the numbers."""
+    import dataclasses
+
+    import torch
+
+    from superpoint_graph_tpu_torch.ops import cutpursuit_band
+    from superpoint_graph_tpu_torch.ops.cutpursuit import _energy
+    from superpoint_graph_tpu_torch.ssp import losses
+
+    with torch.no_grad():
+        emb = trainer.embed_train(batch)
+        diff = losses.compute_dist(emb, torch.as_tensor(batch["edg_source"],
+                                                        device=dev),
+                                   torch.as_tensor(batch["edg_target"],
+                                                   device=dev),
+                                   loss_cfg.dist_type).cpu().numpy()
+    emb = emb.cpu().numpy()
+    es, et = batch["edg_source"], batch["edg_target"]
+    f = np.hstack([emb, loss_cfg.spatial_emb * batch["xyz"]]).astype(np.float64)
+    w = (np.exp(diff * loss_cfg.edge_weight_threshold)
+         / np.exp(loss_cfg.edge_weight_threshold)).astype(np.float64)
+    reg = loss_cfg.reg_strength / (4 * loss_cfg.k_nn_adj)
+    quality = {}
+    for backend in ("device", "exact"):
+        t0 = time.perf_counter()
+        comps, in_comp = losses.compute_partition(
+            dataclasses.replace(loss_cfg, cp_backend=backend), emb, es, et,
+            diff, batch["xyz"], dev)
+        quality[backend] = {
+            "seconds": time.perf_counter() - t0, "n_comp": len(comps),
+            "energy": _energy(f, np.ones(len(f)), in_comp.astype(np.int64),
+                              es, et, w, reg)[0]}
+        if backend == "device":
+            quality["device"]["solve"] = dict(cutpursuit_band.LAST_SOLVE_STATS)
+    quality["energy_ratio"] = (quality["device"]["energy"]
+                               / quality["exact"]["energy"])
+    quality["n_comp_ratio"] = (quality["device"]["n_comp"]
+                               / quality["exact"]["n_comp"])
+    print(f"[{tag}] in-loop partition, device vs exact: {json.dumps(quality)}"
+          f"; bounds energy x{QUALITY_BOUNDS['energy_ratio']}, components "
+          f"{QUALITY_BOUNDS['n_comp_ratio']}", flush=True)
+    lo, hi = QUALITY_BOUNDS["n_comp_ratio"]
+    if not (quality["energy_ratio"] <= QUALITY_BOUNDS["energy_ratio"]
+            and lo <= quality["n_comp_ratio"] <= hi
+            and quality["device"]["solve"]["cc_capped"] == 0):
+        raise AssertionError(f"the in-loop device solve is outside its "
+                             f"bounds: {quality}")
+    return quality
 
 
 def spg_readable(graph_sp, comps, in_comp, tmp) -> str:
@@ -962,8 +1063,6 @@ def ssp_phase(dev, tmp, points=SSP_ROOM_POINTS):
     """The supervised partition's path on `dev` (tools/torch_ssp_phase_cpu.py
     runs it on the CPU with smaller rooms): returns (nn1 launches of the
     path, the nn1 check at a room's read shape, the phase's numbers)."""
-    import dataclasses
-
     import torch
 
     from superpoint_graph_tpu_torch.cli import (ssp_evaluate, ssp_generate,
@@ -975,7 +1074,6 @@ def ssp_phase(dev, tmp, points=SSP_ROOM_POINTS):
         bn_fed_biases, branches, card_vs_cpu, pooling_nets, ssp_step_record,
         ssp_trainer_factory)
     from superpoint_graph_tpu_torch.ops import cutpursuit_band
-    from superpoint_graph_tpu_torch.ops.cutpursuit import _energy
     from superpoint_graph_tpu_torch.ops.nn1 import nn1
     from superpoint_graph_tpu_torch.ssp import losses
     from superpoint_graph_tpu_torch.ssp.embed import SspTrainer
@@ -1141,45 +1239,7 @@ def ssp_phase(dev, tmp, points=SSP_ROOM_POINTS):
           f"{json.dumps(f32_vs_f64)}", flush=True)
     # the in-loop partition of the trained embedder's training-mode
     # embeddings: the device solver against the host exact one
-    q_t = fresh(dev)
-    with torch.no_grad():
-        emb = q_t.embed_train(batch)
-        diff = losses.compute_dist(emb, torch.as_tensor(batch["edg_source"],
-                                                        device=dev),
-                                   torch.as_tensor(batch["edg_target"],
-                                                   device=dev),
-                                   loss_cfg.dist_type).cpu().numpy()
-    emb = emb.cpu().numpy()
-    es, et = batch["edg_source"], batch["edg_target"]
-    f = np.hstack([emb, loss_cfg.spatial_emb * batch["xyz"]]).astype(np.float64)
-    w = (np.exp(diff * loss_cfg.edge_weight_threshold)
-         / np.exp(loss_cfg.edge_weight_threshold)).astype(np.float64)
-    reg = loss_cfg.reg_strength / (4 * loss_cfg.k_nn_adj)
-    quality = {}
-    for backend in ("device", "exact"):
-        t0 = time.perf_counter()
-        comps, in_comp = losses.compute_partition(
-            dataclasses.replace(loss_cfg, cp_backend=backend), emb, es, et,
-            diff, batch["xyz"], dev)
-        quality[backend] = {
-            "seconds": time.perf_counter() - t0, "n_comp": len(comps),
-            "energy": _energy(f, np.ones(len(f)), in_comp.astype(np.int64),
-                              es, et, w, reg)[0]}
-        if backend == "device":
-            quality["device"]["solve"] = dict(cutpursuit_band.LAST_SOLVE_STATS)
-    quality["energy_ratio"] = (quality["device"]["energy"]
-                               / quality["exact"]["energy"])
-    quality["n_comp_ratio"] = (quality["device"]["n_comp"]
-                               / quality["exact"]["n_comp"])
-    print(f"[ssp] in-loop partition, device vs exact: {json.dumps(quality)}; "
-          f"bounds energy x{QUALITY_BOUNDS['energy_ratio']}, components "
-          f"{QUALITY_BOUNDS['n_comp_ratio']}", flush=True)
-    lo, hi = QUALITY_BOUNDS["n_comp_ratio"]
-    if not (quality["energy_ratio"] <= QUALITY_BOUNDS["energy_ratio"]
-            and lo <= quality["n_comp_ratio"] <= hi
-            and quality["device"]["solve"]["cc_capped"] == 0):
-        raise AssertionError(f"the in-loop device solve is outside its "
-                             f"bounds: {quality}")
+    quality = inloop_vs_exact(fresh(dev), loss_cfg, batch, dev)
 
     # SSP_OVERFIT_STEPS steps on the fixed batch, each split by CUDA events
     # into embed / host weights (the in-loop solve timed apart on the host
@@ -1218,7 +1278,7 @@ def ssp_phase(dev, tmp, points=SSP_ROOM_POINTS):
                "loss_backward_adam": float(warm[:, 2].mean()),
                "total": float(warm.sum(1).mean()),
                "steps_timed": len(warm), "vertices": len(batch["xyz"]),
-               "edges": len(es)}
+               "edges": len(batch["edg_source"])}
     ratio = fit_losses[-1] / fit_losses[0]
     print(f"[ssp] {SSP_OVERFIT_STEPS} steps on one batch: loss "
           f"{fit_losses[0]:.4f} -> {fit_losses[-1]:.4f} (x{ratio:.4f}); step "
@@ -1243,6 +1303,444 @@ def ssp_phase(dev, tmp, points=SSP_ROOM_POINTS):
     print(f"[ssp] phase {out['phase_s']:.1f} s, peak "
           f"{out['max_memory_allocated_gib']} GiB", flush=True)
     return launches, checks, out
+
+
+# the custom-dataset recipe (docs/DATASETS.md:59-63): one synthetic room
+# under data/train/ as a binary ply with labels 1..6, an ascii pcd with
+# labels and a LAS 1.2 point format 3, another under data/test/ as an
+# ascii ply without labels; --n_labels is custom_dataset's 13 classes
+# (data/datasets.py::get_info), so the las and the test ply carry label
+# histograms without a labelled point, which the loss ignores
+CUSTOM_POINTS, CUSTOM_N_LABELS = 300_000, 13
+CUSTOM_FILES = ("train/a.ply", "train/b.pcd", "train/c.las", "test/d.ply")
+
+
+def _vertex(xyz, rgb, labels=None):
+    out = {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+           "red": rgb[:, 0], "green": rgb[:, 1], "blue": rgb[:, 2]}
+    if labels is not None:
+        out["label"] = labels
+    return out
+
+
+def spg_epoch(dev, dataset, root, entries, rows, train_names, test_names):
+    """One training epoch of the flagship at full width and one test epoch
+    on the SPG entries and parsed rows in memory, at the S3DIS recipe's
+    flags for `dataset` (docs/DATASETS.md: the SPG stage "exactly as for
+    S3DIS"); returns their numbers and raises unless both losses are
+    finite."""
+    from superpoint_graph_tpu_torch.cli import train as cli_train
+    from superpoint_graph_tpu_torch.data.datasets import get_info
+    from superpoint_graph_tpu_torch.data.spg_io import scaler01
+    from superpoint_graph_tpu_torch.room import EDGE_ATTRIBS
+
+    trainlist, testlist, _, _ = scaler01(
+        [entries[n] for n in train_names], [entries[n] for n in test_names])
+    args = cli_train.parse_args(["--dataset", dataset, *TRAIN_RECIPE[2:]])
+    dbinfo = get_info(dataset, str(root), EDGE_ATTRIBS, args.pc_attribs)
+    _, trainer, loader_cfg, n_ch = cli_train.build(args, dbinfo, dev)
+    rng = np.random.RandomState(SEED)
+    t0 = time.perf_counter()
+    loss, cm, info = cli_train.run_epoch(
+        trainer, trainlist, train_names, rows.__getitem__, loader_cfg, n_ch,
+        dbinfo, True, rng, args.batch_size)
+    te_loss, _, te_info = cli_train.run_epoch(
+        trainer, testlist, test_names, rows.__getitem__, loader_cfg, n_ch,
+        dbinfo, False, rng, 1)
+    out = {"loss": loss, "acc": 100 * cm.get_overall_accuracy(),
+           "test_loss": te_loss, "seconds": time.perf_counter() - t0,
+           "train": info, "test": te_info}
+    if not np.isfinite([loss, te_loss]).all():
+        raise AssertionError(f"a {dataset} training loss is not finite: {out}")
+    return out
+
+
+def custom_phase(dev, tmp, points=CUSTOM_POINTS):
+    """The custom-dataset recipe on `dev` (tools/torch_datasets_phase_cpu.py
+    runs it on the CPU with smaller rooms): each file written and read
+    back (the arrays written, xyz within the format's precision), the
+    partition CLI's per-file function on each, the ply's partition against
+    partition_cloud on the same arrays (bit for bit), parsed rows in memory
+    and one training epoch of the flagship on the split. Returns the
+    phase's numbers."""
+    from superpoint_graph_tpu_torch.cli import partition as cli_partition
+    from superpoint_graph_tpu_torch.data import provider
+    from superpoint_graph_tpu_torch.data.synthetic import (synthetic_room,
+                                                           write_las)
+    from superpoint_graph_tpu_torch.learn.train_check import training_rooms
+    from superpoint_graph_tpu_torch.pipeline import partition_cloud
+    from superpoint_graph_tpu_torch.room import EDGE_ATTRIBS
+    from superpoint_graph_tpu_torch.utils import plyio
+
+    t_phase = time.perf_counter()
+    root = Path(tmp)
+    for split in ("train", "test"):
+        (root / "data" / split).mkdir(parents=True)
+    path = {f: root / "data" / f for f in CUSTOM_FILES}
+    xyz, rgb, lab, _ = synthetic_room(np.random.RandomState(SEED + 40), points)
+    labels = (lab + 1).astype(np.uint8)
+    t_xyz, t_rgb, _, _ = synthetic_room(np.random.RandomState(SEED + 41),
+                                        points)
+    writers = {
+        "train/a.ply": lambda p: plyio.write_ply(
+            p, _vertex(xyz, rgb, labels), text=False),
+        "train/b.pcd": lambda p: provider.write_pcd(p, xyz, labels),
+        "train/c.las": lambda p: write_las(p, xyz, (1, 2), 3, rgb=rgb),
+        "test/d.ply": lambda p: plyio.write_ply(p, _vertex(t_xyz, t_rgb)),
+    }
+    files, held = {}, {}
+    for f, write in writers.items():
+        t0 = time.perf_counter()
+        held[f] = write(str(path[f]))
+        files[f] = {"write_s": time.perf_counter() - t0,
+                    "bytes": path[f].stat().st_size}
+    readers = {
+        "train/a.ply": provider.read_ply, "train/b.pcd": provider.read_pcd,
+        "train/c.las": provider.read_las, "test/d.ply": provider.read_ply}
+    back = {}
+    for f, read in readers.items():
+        t0 = time.perf_counter()
+        back[f] = read(str(path[f]))
+        files[f]["read_s"] = time.perf_counter() - t0
+    text_close = lambda a, b: np.allclose(a, b, rtol=1e-5, atol=1e-6)  # noqa: E731
+    read_ok = {
+        "train/a.ply": (np.array_equal(back["train/a.ply"][0], xyz)
+                        and np.array_equal(back["train/a.ply"][1], rgb)
+                        and np.array_equal(back["train/a.ply"][2], labels)),
+        "train/b.pcd": (text_close(back["train/b.pcd"][0], xyz)
+                        and np.array_equal(back["train/b.pcd"][1], labels)),
+        "train/c.las": (float(np.abs(held["train/c.las"] - xyz).max()) <= 5e-4
+                        and np.allclose(back["train/c.las"],
+                                        held["train/c.las"], rtol=0,
+                                        atol=1e-6)),
+        "test/d.ply": (text_close(back["test/d.ply"][0], t_xyz)
+                       and np.array_equal(back["test/d.ply"][1], t_rgb)
+                       and back["test/d.ply"][2].size == 0),
+    }
+    print(f"[custom] readers give the arrays written: {json.dumps(read_ok)}",
+          flush=True)
+    if not all(read_ok.values()):
+        raise AssertionError(f"a custom-dataset reader disagrees: {read_ok}")
+
+    # ---- the main path: the partition CLI's per-file function
+    args = cli_partition.parse_args([
+        "--ROOT_PATH", str(root), "--dataset", "custom_dataset",
+        "--n_labels", str(CUSTOM_N_LABELS)])
+    parts = {}
+    for f in CUSTOM_FILES:
+        t0 = time.perf_counter()
+        p = parts[f.rsplit(".", 1)[0]] = cli_partition.partition_file(
+            str(path[f]), args, dev)
+        files[f].update(partition_file_s=time.perf_counter() - t0,
+                        voxels=len(p.xyz), superpoints=len(p.components),
+                        superedges=int(len(p.graph_sp["source"])))
+    direct = partition_cloud(xyz, rgb, labels, None, CUSTOM_N_LABELS,
+                             cli_partition.partition_config(args), device=dev)
+    ply = parts["train/a"]
+    same = (np.array_equal(ply.xyz, direct.xyz)
+            and np.array_equal(ply.labels, direct.labels)
+            and np.array_equal(ply.in_component, direct.in_component)
+            and all(np.array_equal(np.asarray(ply.graph_sp[k]),
+                                   np.asarray(direct.graph_sp[k]))
+                    for k in direct.graph_sp))
+    print(f"[custom] partition_file of the ply equal bit for bit to "
+          f"partition_cloud on its arrays: {same}", flush=True)
+    if not same:
+        raise AssertionError("partition_file of the ply differs from "
+                             "partition_cloud")
+    entries, rows = training_rooms(parts, EDGE_ATTRIBS, "custom_dataset")
+    epoch = spg_epoch(dev, "custom_dataset", root, entries, rows,
+                      ["train/a", "train/b", "train/c"], ["test/d"])
+    out = {"files": files, "epoch": epoch,
+           "phase_s": time.perf_counter() - t_phase}
+    for f, v in files.items():
+        print(f"[custom] {f}: {json.dumps(v)}", flush=True)
+    print(f"[custom] epoch {json.dumps(epoch)}; phase {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
+# the vKITTI3D recipe (docs/DATASETS.md:42-57): six synthetic street
+# frames, one a fold 01..06, through ssp_preprocess (voxel 0.05), one
+# ssp_train epoch at cvfold 1 (reg_strength 0.5, spatial_emb 0.2, CP_cutoff
+# 25, the S3DIS phase's embedder widths: the CLI's defaults), ssp_generate
+# and ssp_evaluate, then parsed rows in the vkitti style and one SPG
+# training epoch on the learned graphs
+VKITTI_FRAMES = tuple((f"0{i}", f"0001_{100 * i:05d}") for i in range(1, 7))
+VKITTI_POINTS = tuple(300_000 + 20_000 * i for i in range(6))
+
+
+def vkitti_phase(dev, tmp, points=VKITTI_POINTS):
+    """The vKITTI3D recipe on `dev` (tools/torch_datasets_phase_cpu.py runs
+    it on the CPU with smaller frames): returns the phase's numbers."""
+    import torch
+
+    from superpoint_graph_tpu_torch.cli import (ssp_evaluate, ssp_generate,
+                                                ssp_preprocess, ssp_train)
+    from superpoint_graph_tpu_torch.data import provider
+    from superpoint_graph_tpu_torch.data.parsed import (build_point_matrix,
+                                                        parsed_entries)
+    from superpoint_graph_tpu_torch.data.spg_io import spg_entry
+    from superpoint_graph_tpu_torch.data.synthetic import write_vkitti_frame
+    from superpoint_graph_tpu_torch.learn.checkpoint import save_checkpoint
+    from superpoint_graph_tpu_torch.ops import cutpursuit_band
+    from superpoint_graph_tpu_torch.room import EDGE_ATTRIBS
+    from superpoint_graph_tpu_torch.ssp import losses
+    from superpoint_graph_tpu_torch.ssp.embed import SspTrainer
+    from superpoint_graph_tpu_torch.ssp.evaluate import aggregate_matrices
+    from superpoint_graph_tpu_torch.ssp.graph_processing import (
+        graph_collate, graph_loader)
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    root = Path(tmp)
+    names = [f"{fold}/{name}" for fold, name in VKITTI_FRAMES]
+    paths, raw_labels = {}, {}
+    t0 = time.perf_counter()
+    for i, name in enumerate(names):
+        paths[name] = root / "data" / f"{name}.npy"
+        raw_labels[name] = write_vkitti_frame(
+            paths[name], np.random.RandomState(SEED + 60 + i), points[i])
+    write_s = time.perf_counter() - t0
+    p_args = ssp_preprocess.parse_args(["--ROOT_PATH", str(root), "--dataset",
+                                        "vkitti", "--voxel_width", "0.05"])
+    t_args = ssp_train.parse_args([
+        "--dataset", "vkitti", "--cvfold", "1", "--reg_strength", "0.5",
+        "--spatial_emb", "0.2", "--CP_cutoff", "25", "--seed", str(SEED)])
+    model_cfg, loss_cfg, loader_cfg = ssp_train.configs(vars(t_args))
+    n_classes = ssp_train.N_CLASSES["vkitti"]
+    test_name, train_names = names[0], names[1:]
+
+    # ---- the main path
+    structures, frames = {}, {}
+    with recorded(provider, "read_vkitti_format") as reads:
+        for name in names:
+            t0 = time.perf_counter()
+            structures[name] = ssp_preprocess.preprocess_file(
+                str(paths[name]), p_args, dev)
+            frames[name] = {"raw_points": len(raw_labels[name]),
+                            "preprocess_s": time.perf_counter() - t0}
+    trainer = SspTrainer(model_cfg, loss_cfg, lr=t_args.lr,
+                         grad_clip=t_args.grad_clip, seed=SEED, device=dev)
+    steps = []
+
+    def on_step(loss, comps, batch):
+        steps.append({"loss": loss, "vertices": len(batch["xyz"]),
+                      "components": len(comps),
+                      "solve": dict(cutpursuit_band.LAST_SOLVE_STATS)})
+        print(f"[vkitti] step {len(steps)}: {json.dumps(steps[-1])}",
+              flush=True)
+
+    # each step split on the host clock, synchronised with the card: embed
+    # / host weights (of which the in-loop solve) / the rest (loss,
+    # backward, Adam)
+    sync = dev if on_card else None
+    t0 = time.perf_counter()
+    with recorded(trainer, "train_step", sync) as whole, \
+            recorded(trainer, "embed_train", sync) as embeds, \
+            recorded(trainer, "host_weights", sync) as weights, \
+            recorded(losses, "compute_partition", sync) as solves:
+        epoch = ssp_train.run_epoch(
+            trainer, [structures[n] for n in train_names], loader_cfg,
+            t_args.batch_size, np.random.RandomState(SEED), on_step)
+    epoch["seconds"] = time.perf_counter() - t0
+    epoch["step_split_s"] = [
+        {"total": a[1], "embed": b[1], "host_weights": c[1],
+         "of_which_solve": d[1], "loss_backward_adam": a[1] - b[1] - c[1]}
+        for a, b, c, d in zip(whole, embeds, weights, solves)]
+    ev = ssp_train.evaluate_clouds(trainer, loss_cfg, loader_cfg,
+                                   [structures[test_name]], n_classes,
+                                   t_args.BR_tolerance, dev)
+    ckpt = str(root / "model.ckpt")
+    save_checkpoint(ckpt, trainer.state_dict(), 1, vars(t_args), None)
+    g_trainer, g_loss, g_loader = ssp_generate.load_model(ckpt, "tpu", dev)
+    spgs = {}
+    for name in names:
+        t0 = time.perf_counter()
+        spgs[name] = ssp_generate.generate_cloud(
+            g_trainer, g_loss, g_loader, structures[name], n_classes, dev)
+        frames[name]["generate_s"] = time.perf_counter() - t0
+    summary = aggregate_matrices([ev.matrices()])
+    print("[vkitti] ssp_evaluate (the test frame, cvfold 1; one epoch from "
+          "random init on synthetic frames, not a quality figure):\n"
+          + ssp_evaluate.summary([("01 (cv1)", ev.matrices())]), flush=True)
+
+    # ---- checks
+    if len(reads) != len(names):
+        raise AssertionError(f"{len(reads)} reader calls for {len(names)} "
+                             "frames")
+    for name, ((_, _, labels), _) in zip(names, reads):
+        raw = raw_labels[name]
+        s = structures[name]
+        frames[name].update(
+            voxels=len(s["xyz"]), edges=len(s["graph_nn"]["source"]),
+            transitions=int(s["is_transition"].sum()),
+            transition_share=float(s["is_transition"].mean()),
+            superpoints=len(spgs[name][1]),
+            reader_labels_equal=bool(np.array_equal(
+                labels, np.where(raw == 13, 0, raw + 1))))
+        print(f"[vkitti] {name}: {json.dumps(frames[name])}", flush=True)
+        if not frames[name]["reader_labels_equal"]:
+            raise AssertionError(f"{name}: read_vkitti_format labels differ "
+                                 "from the generator's after the remap")
+    if not np.isfinite(epoch["loss"]) or not steps:
+        raise AssertionError(f"the vKITTI SSP epoch: {epoch}")
+    for step in steps:
+        if step["solve"]["cc_capped"]:
+            raise AssertionError(f"an in-loop CC call stopped at its cap: "
+                                 f"{step}")
+    repeat = True
+    for name in names:
+        _, _, in_comp = ssp_generate.generate_partition(
+            g_trainer, g_loss, g_loader, structures[name], dev)
+        repeat &= np.array_equal(in_comp, spgs[name][2])
+    print(f"[vkitti] two ssp_generate runs give bit-equal partitions: "
+          f"{repeat}", flush=True)
+    if not repeat:
+        raise AssertionError("ssp_generate's vKITTI partitions differ "
+                             "between runs")
+    structure = structure_vs_cpu(reads[0][0], structures[test_name], dev,
+                                 dataset="vkitti", voxel=0.05, tag="vkitti")
+    fixed = dataclasses.replace(loader_cfg, pc_augm_rot=False,
+                                pc_augm_jitter=False)
+    rs_fixed = np.random.RandomState(SEED)
+    batch = graph_collate([graph_loader(structures[n], True, fixed, rs_fixed)
+                           for n in train_names[:t_args.batch_size]])
+    quality = inloop_vs_exact(trainer, loss_cfg, batch, dev, tag="vkitti")
+
+    # ---- the SPG stage on the learned graphs: parsed rows in the vkitti
+    # style from the structures (preprocess_pointclouds(supervized=True))
+    entries, rows = {}, {}
+    for name in names:
+        s, (graph_sp, comps, _) = structures[name], spgs[name]
+        entries[name] = spg_entry(graph_sp, EDGE_ATTRIBS, name)
+        rows[name] = parsed_entries(build_point_matrix(
+            s["xyz"], s["rgb"], s["geof"], "vkitti",
+            elevation=s["elevation"]), comps)
+    spg = spg_epoch(dev, "vkitti", root, entries, rows, train_names,
+                    [test_name])
+    out = {"frames": frames, "write_s": write_s, "epoch": epoch,
+           "steps": steps, "evaluate_test_frame": summary,
+           "generate_repeat_equal": repeat, "structure_vs_cpu": structure,
+           "inloop_quality": quality, "spg_epoch": spg,
+           "max_memory_allocated_gib": (
+               torch.cuda.max_memory_allocated(dev) / 2**30 if on_card
+               else None),
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[vkitti] epoch {json.dumps(epoch)}", flush=True)
+    print(f"[vkitti] SPG epoch {json.dumps(spg)}; phase {out['phase_s']:.1f} "
+          f"s, peak {out['max_memory_allocated_gib']} GiB", flush=True)
+    return out
+
+
+def submission_phase(dev, tmp, scan, raw_path):
+    """The Semantic3D submission writer's array function on the scan
+    phase's partition and predictions: its `.labels` must equal, line for
+    line, label_scan's class of every raw point. Returns (nn1 launches of
+    the writer, its numbers: seconds, the nn1 calls' share by CUDA
+    events)."""
+    import torch
+
+    from superpoint_graph_tpu_torch.cli.write_semantic3d import (
+        write_submission)
+    from superpoint_graph_tpu_torch.data import provider
+    from superpoint_graph_tpu_torch.ops.nn1 import nn1
+    from superpoint_graph_tpu_torch.scan import VER_BATCH
+
+    on_card = dev.type == "cuda"
+    events, orig = [], provider.nn1
+
+    def stamp():
+        if not on_card:
+            return time.perf_counter()
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed_nn1(db, q):
+        start = stamp()
+        idx = orig(db, q)
+        events.append((start, stamp()))
+        return idx
+
+    out_path = Path(tmp) / "station1.labels.submission"
+    provider.nn1 = timed_nn1
+    try:
+        if on_card:
+            torch.cuda.synchronize(dev)
+        nn1.launches = 0
+        t0 = time.perf_counter()
+        full = write_submission(str(out_path), str(raw_path),
+                                scan.partition.xyz, scan.partition.components,
+                                scan.logits.argmax(1), VER_BATCH, dev)
+        seconds = time.perf_counter() - t0
+        launches = nn1.launches
+    finally:
+        provider.nn1 = orig
+    nn1_s = sum(a.elapsed_time(b) / 1e3 if on_card else b - a
+                for a, b in events)
+    want = ("\n".join(map(str, scan.labels.tolist())) + "\n").encode()
+    same = (np.array_equal(full, scan.labels)
+            and out_path.read_bytes() == want)
+    out = {"seconds": seconds, "nn1_s": nn1_s, "nn1_share": nn1_s / seconds,
+           "nn1_calls": len(events), "nn1_launches": launches,
+           "raw_points": len(full), "bytes": out_path.stat().st_size,
+           "labels_equal_label_scan": same}
+    print(f"[submission] {json.dumps(out)}", flush=True)
+    if not same or (on_card and launches < 2):
+        raise AssertionError(f"the submission's labels differ from "
+                             f"label_scan's, or nn1 did not run: {out}")
+    return launches, out
+
+
+def visualize_phase(tmp, r):
+    """cli/visualize's writer on the room phase's result, every output
+    type (igfprse): each ply read back with read_ply_elements equals the
+    arrays the writers wrote (integers exactly, floats within the ascii
+    format's "%.6g"). Returns its numbers."""
+    from superpoint_graph_tpu_torch.cli.visualize import write_clouds
+    from superpoint_graph_tpu_torch.utils import plyio
+
+    part = r.partition
+    written, orig = {}, plyio.write_ply_elements
+
+    def keep(filename, elements, text=True):
+        written[filename] = elements
+        return orig(filename, elements, text)
+
+    plyio.write_ply_elements = keep
+    try:
+        t0 = time.perf_counter()
+        paths = write_clouds(str(Path(tmp) / "Area_1_room_0"), "igfprse",
+                             "s3dis", part.xyz, part.rgb, part.labels,
+                             part.geof, part.graph_sp, part.components,
+                             r.logits.argmax(1))
+        write_s = time.perf_counter() - t0
+    finally:
+        plyio.write_ply_elements = orig
+    kinds, t0 = {}, time.perf_counter()
+    for path in paths:
+        got = plyio.read_ply_elements(path)
+        ok = got.keys() == written[path].keys()
+        for el, props in written[path].items():
+            for k, want in props.items():
+                want = np.asarray(want)
+                a = got[el][k]
+                ok &= a.dtype == want.dtype and (
+                    np.allclose(a, want, rtol=1e-5, atol=0)
+                    if want.dtype.kind == "f" else np.array_equal(a, want))
+        kinds[Path(path).stem.rsplit("_", 1)[1]] = bool(ok)
+    out = {"plys": kinds, "write_s": write_s,
+           "read_s": time.perf_counter() - t0,
+           "bytes": sum(Path(p).stat().st_size for p in paths),
+           "points": len(part.xyz)}
+    print(f"[visualize] {json.dumps(out)}", flush=True)
+    if len(kinds) != 7 or not all(kinds.values()):
+        raise AssertionError(f"a visualize ply does not read back: {out}")
+    return out
 
 
 def main() -> int:
@@ -1393,9 +1891,14 @@ def main() -> int:
                                                           r.partition)
     checks += checks_train
 
-    # ---- 10. the scan path; only its own nn1 launches are counted
+    # ---- 10. the scan path, then (12) the submission writer on its
+    # output; only each one's own nn1 launches are counted
     with tempfile.TemporaryDirectory() as tmp:
-        scan_launches, checks_scan, (s_vox, s_chunks) = scan_phase(dev, tmp)
+        scan_launches, checks_scan, (s_vox, s_chunks), scan, scan_path = \
+            scan_phase(dev, tmp)
+        submission_launches, submission = submission_phase(dev, tmp, scan,
+                                                           scan_path)
+    del scan
     checks += checks_scan
 
     # ---- 11. the supervised partition; only its own nn1 launches are
@@ -1404,7 +1907,17 @@ def main() -> int:
         ssp_launches, checks_ssp, ssp = ssp_phase(dev, tmp)
     checks += checks_ssp
 
-    # ---- 12. nn1 at its shapes: kernel, plain (on plain_rows sampled
+    # ---- 13. the custom-dataset recipe; 14. the vKITTI3D recipe (neither
+    # runs a kernel: their readers parse files on the host)
+    with tempfile.TemporaryDirectory() as tmp:
+        custom = custom_phase(dev, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        vkitti = vkitti_phase(dev, tmp)
+    # ---- 15. visualize's writer on the room's result
+    with tempfile.TemporaryDirectory() as tmp:
+        visualize = visualize_phase(tmp, r)
+
+    # ---- 16. nn1 at its shapes: kernel, plain (on plain_rows sampled
     # queries where given), library, bound
     shapes = []
     for (db, q, check, name) in (
@@ -1423,7 +1936,7 @@ def main() -> int:
             "splits": nn1_plan(len(q), len(db))[0]})
         print(f"[time] nn1 {json.dumps(shapes[-1])}", flush=True)
 
-    # ---- 13. result lines; the top-level numbers are the read shape's
+    # ---- 17. result lines; the top-level numbers are the read shape's
     # (1M x 1M, the largest launch of the room path)
     read = shapes[0]
     kernels = [{
@@ -1433,14 +1946,18 @@ def main() -> int:
         "replaces": "superpoint_graph_tpu/ops/nn1_pallas.py:27",
         "launches": launches,
         "launches_by_path": {"room": launches, "train": train_launches,
-                             "scan": scan_launches, "ssp": ssp_launches},
+                             "scan": scan_launches, "ssp": ssp_launches,
+                             "submission": submission_launches},
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         **{k: read[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "shape")},
         "shapes": shapes,
         "ptxas": [line for line in ptxas.splitlines() if "Used" in line],
     }]
-    print(json.dumps({"kernels": kernels, "train": train, "ssp": ssp}))
+    print(json.dumps({"kernels": kernels, "train": train, "ssp": ssp,
+                      "custom": custom, "vkitti": vkitti,
+                      "outputs": {"submission": submission,
+                                  "visualize": visualize}}))
     print(f"[card] {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

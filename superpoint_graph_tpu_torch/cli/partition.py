@@ -3,14 +3,15 @@ h5 caches.
 
 Port of superpoint_graph_tpu/cli/partition.py (flags :16-40; reference
 partition/partition.py:20-31, 113-189). `partition_file` is the per-file
-work: the ported reader (S3DIS: the nn1 kernel re-associates the
-annotation objects; Semantic3D: chunks pruned on the card as they are
-read), then `pipeline.partition_cloud` (prune, kNN, geof, the device cut
-pursuit, SPG), returning the PartitionResult. `main` walks <ROOT>/data,
-skips files whose caches exist (unless --overwrite 1) and writes the
-caches with utils/h5io.py. s3dis and sema3d are supported; vkitti and
-custom_dataset (ply/pcd/las) raise until their readers are ported
-(ROADMAP queue 1 item 2). --cp_backend keeps the JAX values: "tpu" is
+work: the dataset's reader (S3DIS, the nn1 kernel
+re-associates the annotation objects; Semantic3D, chunks pruned on the
+card as they are read; vKITTI npy; custom_dataset ply, pcd or las), then
+`pipeline.partition_cloud` (prune, kNN, geof, the device cut pursuit,
+SPG), returning the PartitionResult. `main` walks <ROOT>/data, skips files
+whose caches exist (unless --overwrite 1) and writes the caches with
+utils/h5io.py. custom_dataset's class count is --n_labels; at 0 the first
+labelled ply or pcd gives it (its largest label) for that file and every
+later one, as in the JAX CLI. --cp_backend keeps the JAX values: "tpu" is
 the port's device solver (cp_backend="device"), "exact" the host one.
 """
 from __future__ import annotations
@@ -25,7 +26,8 @@ import numpy as np
 from ..device import card_unless
 from ..pipeline import PartitionConfig, PartitionResult, partition_cloud
 
-N_LABELS = {"s3dis": 13, "sema3d": 8}
+N_LABELS = {"s3dis": 13, "sema3d": 8, "vkitti": 13}
+DATASETS = (*N_LABELS, "custom_dataset")
 
 
 def parse_args(argv=None):
@@ -63,11 +65,9 @@ def partition_config(args) -> PartitionConfig:
         spg_adjacency=args.spg_adjacency)
 
 
-def _supported(dataset: str):
-    if dataset not in N_LABELS:
-        raise NotImplementedError(
-            f"dataset {dataset!r}: its reader is not ported yet (ROADMAP "
-            "queue 1 item 2); the port partitions s3dis and sema3d")
+def check_dataset(dataset: str):
+    if dataset not in DATASETS:
+        raise ValueError(f"unknown dataset {dataset!r}: one of {DATASETS}")
 
 
 def find_folders(root: str) -> list[str]:
@@ -77,9 +77,14 @@ def find_folders(root: str) -> list[str]:
 
 
 def files_in_folder(root: str, folder: str, dataset: str) -> list[str]:
+    """The raw files of one folder: <room>/<room>.txt (s3dis), *.txt
+    (sema3d), *.npy (vkitti), *.ply then *.las then *.pcd, sorted together
+    (custom_dataset)."""
     data = os.path.join(root, "data", folder)
-    pattern = "*/*.txt" if dataset == "s3dis" else "*.txt"
-    return sorted(glob.glob(os.path.join(data, pattern)))
+    patterns = {"s3dis": ["*/*.txt"], "sema3d": ["*.txt"],
+                "vkitti": ["*.npy"]}.get(dataset, ["*.ply", "*.las", "*.pcd"])
+    return sorted(f for p in patterns
+                  for f in glob.glob(os.path.join(data, p)))
 
 
 def cloud_name(data_file: str, dataset: str) -> str:
@@ -89,19 +94,20 @@ def cloud_name(data_file: str, dataset: str) -> str:
     return os.path.splitext(os.path.basename(data_file))[0]
 
 
-def partition_file(data_file: str, args, device=None) -> PartitionResult:
-    """Read one raw cloud and partition it on `device` (default: the
-    card) with the flags in `args` (parse_args)."""
-    _supported(args.dataset)
-    device = card_unless(device)
+def _partition_file(data_file: str, args, n_labels: int, device):
+    """(partition_file's result, the class count after this file): the
+    reader of args.dataset (JAX cli/partition.py:116-152), then
+    partition_cloud. `n_labels` is the class count so far, which a
+    custom_dataset ply or pcd with labels sets to its largest label when
+    it is 0."""
     from ..data import provider
 
     cfg = partition_config(args)
-    n_labels = N_LABELS[args.dataset]
+    labels = objects = None
     if args.dataset == "s3dis":
         xyz, rgb, labels, objects = provider.read_s3dis_format(
             data_file, device=device)
-    else:
+    elif args.dataset == "sema3d":
         label_file = data_file[:-4] + ".labels"
         has_labels = os.path.isfile(label_file)
         out = provider.read_semantic3d_format(
@@ -110,13 +116,38 @@ def partition_file(data_file: str, args, device=None) -> PartitionResult:
             args.ver_batch, device=device)
         xyz, rgb = out[:2]
         labels = out[2] if has_labels else None
-        objects = None
         # the reader pruned each chunk already
         cfg = dataclasses.replace(cfg, voxel_width=0.0)
-    return partition_cloud(
+    elif args.dataset == "vkitti":
+        xyz, rgb, labels = provider.read_vkitti_format(data_file)
+    elif data_file.endswith(".pcd"):
+        xyz, labels = provider.read_pcd(data_file)
+        rgb = np.zeros((len(xyz), 3), np.uint8)
+    elif data_file.endswith(".las"):
+        xyz = provider.read_las(data_file)
+        rgb = np.zeros((len(xyz), 3), np.uint8)
+    else:
+        xyz, rgb, labels = provider.read_ply(data_file)
+    if labels is not None and np.size(labels) == 0:
+        labels = None
+    elif labels is not None and n_labels == 0:
+        n_labels = int(np.max(labels))
+    res = partition_cloud(
         xyz, rgb, None if labels is None else np.asarray(labels),
         None if objects is None else np.asarray(objects),
         n_labels=n_labels, cfg=cfg, device=device)
+    return res, n_labels
+
+
+def partition_file(data_file: str, args, device=None) -> PartitionResult:
+    """Read one raw cloud and partition it on `device` (default: the
+    card) with the flags in `args` (parse_args); a custom_dataset file's
+    class count is --n_labels, or its largest label at 0."""
+    check_dataset(args.dataset)
+    device = card_unless(device)
+    return _partition_file(data_file, args,
+                           N_LABELS.get(args.dataset, args.n_labels),
+                           device)[0]
 
 
 def main(argv=None, device=None):
@@ -125,9 +156,10 @@ def main(argv=None, device=None):
     from ..utils.h5io import write_features, write_spg
 
     args = parse_args(argv)
-    _supported(args.dataset)
+    check_dataset(args.dataset)
     device = card_unless(device)
     root = args.ROOT_PATH.rstrip("/")
+    n_labels = N_LABELS.get(args.dataset, args.n_labels)
     times = {"features": 0.0, "partition": 0.0, "spg": 0.0}
     for folder in find_folders(root):
         files = files_in_folder(root, folder, args.dataset)
@@ -144,7 +176,8 @@ def main(argv=None, device=None):
                     and not args.overwrite):
                 print("    already computed, skipping (use --overwrite 1)")
                 continue
-            res = partition_file(data_file, args, device)
+            res, n_labels = _partition_file(data_file, args, n_labels,
+                                            device)
             for k in times:
                 times[k] += res.times[k]
             write_features(fea_file, res.geof, res.xyz, res.rgb, res.graph_nn,

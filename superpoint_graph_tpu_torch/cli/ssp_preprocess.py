@@ -2,14 +2,14 @@
 
 Port of superpoint_graph_tpu/cli/ssp_preprocess.py (flags :13-25;
 reference supervized_partition/graph_processing.py:34-46, 110-193).
-`preprocess_file` is the per-file work: the ported reader (S3DIS: the nn1
-kernel re-associates the annotation objects; Semantic3D: chunks pruned on
-the card as they are read), then `ssp/graph_processing.
-build_supervision_structure` (prune, kNN, geof on the card; transitions,
-RANSAC elevation on the host). `main` walks <ROOT>/data, skips files whose
-structure exists (unless --overwrite 1) and writes each with h5py
-(imported there). vkitti raises until its reader is ported (ROADMAP queue
-1 item 2). `--ver_batch` is the Semantic3D reader's chunk.
+`preprocess_file` is the per-file work: the dataset's reader (S3DIS: the
+nn1 kernel re-associates the annotation objects; Semantic3D: chunks pruned
+on the card as they are read; vKITTI: npy frames), then `ssp/
+graph_processing.build_supervision_structure` (prune, kNN, geof on the
+card; transitions, RANSAC elevation on the host). `main` walks
+<ROOT>/data, skips files whose structure exists (unless --overwrite 1) and
+writes each with h5py (imported there). `--ver_batch` is the Semantic3D
+reader's chunk.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import numpy as np
 from ..device import card_unless
 from .partition import cloud_name, files_in_folder, find_folders
 
-N_LABELS = {"s3dis": 13, "sema3d": 8}
+N_LABELS = {"s3dis": 13, "sema3d": 8, "vkitti": 13}
 
 
 def parse_args(argv=None):
@@ -42,9 +42,8 @@ def parse_args(argv=None):
 
 def _supported(dataset: str):
     if dataset not in N_LABELS:
-        raise NotImplementedError(
-            f"dataset {dataset!r}: its reader is not ported yet (ROADMAP "
-            "queue 1 item 2); the port preprocesses s3dis and sema3d")
+        raise ValueError(f"unknown dataset {dataset!r}: one of "
+                         f"{tuple(N_LABELS)}")
 
 
 def preprocess_config(args):
@@ -72,6 +71,8 @@ def preprocess_file(data_file: str, args, device=None) -> dict:
     if args.dataset == "s3dis":
         xyz, rgb, labels, objects = provider.read_s3dis_format(
             data_file, device=device)
+    elif args.dataset == "vkitti":
+        xyz, rgb, labels = provider.read_vkitti_format(data_file)
     else:
         label_file = data_file[:-4] + ".labels"
         if os.path.isfile(label_file):

@@ -287,7 +287,8 @@ def eval_final(args, trainer, entries, names, parsed_rows, loader_cfg, n_ch,
         pred = acc.argmax(1)
         predictions[name] = pred
         valid = entry[0].ravel() != -100
-        cm.count_predicted_batch(entry[1][valid][:, 1:], pred[valid])
+        if valid.any():  # (a cloud without labels may have fewer columns)
+            cm.count_predicted_batch(entry[1][valid][:, 1:], pred[valid])
     return predictions, cm
 
 

@@ -1,19 +1,20 @@
 """Per-superpoint point sets ("parsed" rows) and class counts.
 
-Port of superpoint_graph_tpu/data/parsed.py (`build_point_matrix` for
-S3DIS and Semantic3D, `write_parsed`, `preprocess_pointclouds`, the class
-counts and `class_weights`; reference s3dis_dataset.py:72-162,
-sema3d_dataset.py), whose module imports h5py at top level.
-`parsed_entries` builds the same per-component arrays straight from a
-partition, with no h5 round trip; the file functions import h5py only when
-called. The plane elevation is the RANSAC fit of utils/ransac.py (the JAX
-package's sklearn RANSACRegressor, copied). The vKITTI row style waits for
-the vKITTI reader (ROADMAP queue 1 item 2) and raises.
+Port of superpoint_graph_tpu/data/parsed.py (`build_point_matrix`,
+`write_parsed`, `preprocess_pointclouds`, the class counts and
+`class_weights`; reference s3dis_dataset.py:72-162, sema3d_dataset.py,
+vkitti_dataset.py, custom_dataset.py), whose module imports h5py at top
+level. `parsed_entries` builds the same per-component arrays straight from
+a partition, with no h5 round trip; the file functions import h5py only
+when called. The plane elevation is the RANSAC fit of utils/ransac.py (the
+JAX package's sklearn RANSACRegressor, copied).
 
-Row layouts: s3dis, 15 columns: [xyz, rgb/255-0.5, elevation, lpsv-0.5,
-xyz normalised to the room box, distance to the room centre]; sema3d, 11
-columns: the first 11 of those (the loader selects them with
-pc_attribs="xyzrgbelpsv").
+Row layouts (`STYLES`): s3dis, 15 columns: [xyz, rgb/255-0.5, elevation,
+lpsv-0.5, xyz normalised to the cloud's box, distance to the cloud's
+centre]; sema3d, 11 columns: the first 11 of those (the loader selects
+them with pc_attribs="xyzrgbelpsv"); vkitti, 14 columns: s3dis's first
+14 with the lpsv columns zero; custom_dataset, 14 columns: s3dis's first
+14.
 """
 from __future__ import annotations
 
@@ -25,38 +26,41 @@ import numpy as np
 from ..utils.ransac import plane_elevation as _plane_elevation
 
 
-def _not_ported(style: str):
-    if style == "vkitti":
-        raise NotImplementedError(
-            "the vKITTI row style is not ported yet (ROADMAP queue 1 item 2)")
-    if style not in ("s3dis", "sema3d"):
-        raise ValueError(f"style={style!r}: 's3dis' or 'sema3d'")
+STYLES = ("s3dis", "sema3d", "vkitti", "custom_dataset")
+
+
+def _check_style(style: str):
+    if style not in STYLES:
+        raise ValueError(f"style={style!r}: one of {STYLES}")
 
 
 def build_point_matrix(xyz, rgb, geof, style: str = "s3dis",
                        plane_elevation: bool = False,
                        elevation=None) -> np.ndarray:
     """The parsed per-point row matrix of a cloud (column layout in
-    data/loader.py), style "s3dis" or "sema3d"; the elevation is the one
-    given, else with plane_elevation z above the RANSAC ground plane
+    data/loader.py) in one of STYLES; the elevation is the one given, else
+    with plane_elevation z above the RANSAC ground plane
     (s3dis_dataset.py:127-133), else the simple z/4 - 0.5 (:135-136)."""
-    _not_ported(style)
+    _check_style(style)
     xyz = np.asarray(xyz, np.float32)
     rgbn = np.asarray(rgb, np.float32) / 255.0 - 0.5
     if elevation is None:
         elevation = (_plane_elevation(xyz) if plane_elevation
                      else xyz[:, 2] / 4.0 - 0.5)
     e = np.asarray(elevation)[:, None].astype(np.float32)
-    lpsv = geof.astype(np.float32) - 0.5
+    if style == "vkitti":
+        lpsv = np.zeros((len(xyz), 4), np.float32)
+    else:
+        lpsv = geof.astype(np.float32) - 0.5
     if style == "sema3d":
         return np.concatenate([xyz, rgbn, e, lpsv], axis=1).astype(np.float32)
-    room_center = xyz[:, :2].mean(0)
-    d = np.sqrt(((xyz[:, :2] - room_center) ** 2).sum(1))
-    d = (d - d.mean()) / (d.std() + 1e-10)
     mi, ma = xyz.min(0, keepdims=True), xyz.max(0, keepdims=True)
-    xyzn = (xyz - mi) / (ma - mi + 1e-8)
-    return np.concatenate([xyz, rgbn, e, lpsv, xyzn, d[:, None]],
-                          axis=1).astype(np.float32)
+    cols = [xyz, rgbn, e, lpsv, (xyz - mi) / (ma - mi + 1e-8)]
+    if style == "s3dis":
+        room_center = xyz[:, :2].mean(0)
+        d = np.sqrt(((xyz[:, :2] - room_center) ** 2).sum(1))
+        cols.append(((d - d.mean()) / (d.std() + 1e-10))[:, None])
+    return np.concatenate(cols, axis=1).astype(np.float32)
 
 
 def parsed_entries(P: np.ndarray, components, max_pts: int = 10000,
@@ -107,10 +111,11 @@ def preprocess_pointclouds(root: str, dataset: str = "s3dis",
     features/ (features_supervision/ when supervized) file ->
     parsed/<folder>/<name>.h5, and the per-class point counts of each folder
     -> parsed/class_count.h5 (a column a folder; one vector for a single
-    folder). Styles "s3dis" and "sema3d" (JAX parsed.py:94-175)."""
+    folder). `dataset` is the row style, one of STYLES (JAX
+    parsed.py:105-158)."""
     import h5py
 
-    _not_ported(dataset)
+    _check_style(dataset)
     spg_root = os.path.join(root, "superpoint_graphs")
     feat_dirname = "features_supervision" if supervized else "features"
     folders = sorted(d for d in os.listdir(spg_root)
@@ -133,7 +138,9 @@ def preprocess_pointclouds(root: str, dataset: str = "s3dis",
             if labels.ndim > 1 and labels.shape[1] > 1:
                 hard = np.argmax(labels[:, 1:], 1)
             else:
-                hard = np.maximum(labels.astype(np.int64) - 1, 0)
+                # ids, or the one-column histogram of a cloud partitioned
+                # without labels (the JAX package's bincount raises on it)
+                hard = np.maximum(labels.astype(np.int64).ravel() - 1, 0)
             class_count[:, fi] += np.bincount(
                 hard, minlength=n_classes)[:n_classes]
             P = build_point_matrix(xyz, rgb, geof, style=dataset,

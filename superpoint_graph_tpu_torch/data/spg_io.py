@@ -48,15 +48,19 @@ def spg_entry(graph: dict, edge_attribs: str, name: str = "",
     """(node_gt [n,1], node_gt_size [n,C+1], edges [E,2], edge_feats [E,F],
     name) from a superpoint-graph dict (the keys of graph/spg.py, or of an
     SPG h5 file): node GT is the argmax of the labelled histogram columns,
-    -100 where a superpoint has no labelled point; surface and volume are
-    squared back (spg.py:66-103). With spg_superedge_cutoff > 0 the
-    superedges whose |delta_avg| reaches it are dropped."""
+    -100 where a superpoint has no labelled point (every superpoint of a
+    one-column histogram: a cloud partitioned without labels at a class
+    count of 0, whose argmax the JAX spg_reader raises on); surface and
+    volume are squared back (spg.py:66-103). With spg_superedge_cutoff > 0
+    the superedges whose |delta_avg| reaches it are dropped."""
     sp_labels = np.asarray(graph["sp_labels"])
     count = np.asarray(graph["sp_point_count"])
     if sp_labels.size > 0:
         node_gt_size = sp_labels.astype(np.int64)
-        node_gt = np.argmax(node_gt_size[:, 1:], 1)[:, None]
-        node_gt[node_gt_size[:, 1:].sum(1) == 0, :] = -100
+        node_gt = np.full((len(node_gt_size), 1), -100, np.int64)
+        labelled = node_gt_size[:, 1:].sum(1) > 0
+        if labelled.any():
+            node_gt[labelled, 0] = np.argmax(node_gt_size[labelled, 1:], 1)
     else:
         n = count.shape[0]
         node_gt_size = np.concatenate(

@@ -1,9 +1,11 @@
-"""A synthetic S3DIS room written in the raw layout, for smoke runs and profiles.
+"""Synthetic clouds written in the datasets' raw layouts, for smoke runs,
+profiles and tests: S3DIS rooms, Semantic3D scans, vKITTI3D street frames
+and LAS files.
 
 `synthetic_room` is the port's copy of the JAX package's numpy generator
 (superpoint_graph_tpu/data/synthetic.py:16-103), with the same behaviour:
 the same seed gives the same arrays (tests/test_torch_slice.py holds the two
-together).
+together). `synthetic_street` and `write_las` have no JAX counterpart.
 """
 from __future__ import annotations
 
@@ -225,3 +227,163 @@ def _write_rows(path: Path, cols, block: int = 1 << 20):
             rows = np.concatenate(rows, 1)
             rows[:, -1] = ord("\n")
             fh.write(rows.tobytes())
+
+
+# a street frame's parts: (vKITTI class, share of the points); the
+# remainder of the budget goes to don't-care points (13)
+_STREET_PARTS = ((4, 0.24), (0, 0.12), (3, 0.18), (1, 0.10), (2, 0.06),
+                 (5, 0.03), (6, 0.01), (7, 0.01), (8, 0.02), (9, 0.02),
+                 (11, 0.08), (12, 0.04), (10, 0.04))
+# class colours, vKITTI ids 0..13
+_STREET_RGB = np.array(
+    [[110, 130, 70], [40, 110, 30], [80, 160, 60], [170, 150, 130],
+     [90, 90, 95], [180, 180, 180], [230, 200, 40], [60, 60, 60],
+     [130, 130, 130], [150, 80, 160], [200, 60, 50], [40, 60, 200],
+     [220, 220, 230], [120, 170, 230]])
+
+
+def _box_surface(rng, n, center, size):
+    """n points on the faces of an axis-aligned box."""
+    p = rng.rand(n, 3) - 0.5
+    face = rng.randint(0, 6, n)
+    p[np.arange(n), face // 2] = np.where(face % 2, 0.5, -0.5)
+    return p * size + center
+
+
+def synthetic_street(rng: np.random.RandomState, n_points: int,
+                     length: float = 10.0, noise: float = 0.01):
+    """A vKITTI3D-like street frame, `length` m along x: a road (|y| < 4),
+    terrain verges, building facades at |y| = 8, guard rails, trees,
+    bushes, poles with signs and lights, small objects, cars, vans and
+    trucks: surfaces, as a stereo or lidar frame sees them, and
+    don't-care points on a backdrop beyond the far end. Returns (xyz f32
+    [n, 3], rgb u8 [n, 3], labels int32 [n]: the raw vKITTI class ids
+    0..13)."""
+    parts = []
+    budget = n_points
+    for label, share in _STREET_PARTS:
+        n = int(share * n_points)
+        budget -= n
+        u = rng.rand(n, 3)
+        x = u[:, 0] * length
+        if label == 4:  # road
+            p = np.stack([x, (u[:, 1] - 0.5) * 8, 0.005 * u[:, 2]], 1)
+        elif label == 0:  # verges, gently sloped
+            y = np.where(u[:, 1] < 0.5, -4 - 4 * u[:, 2], 4 + 4 * u[:, 2])
+            p = np.stack([x, y, 0.05 * (np.abs(y) - 4)], 1)
+        elif label == 3:  # facades
+            side = np.where(u[:, 1] < 0.5, -8.0, 8.0)
+            p = np.stack([x, side, 6 * u[:, 2]], 1)
+        elif label == 5:  # guard rails
+            side = np.where(u[:, 1] < 0.5, -4.3, 4.3)
+            p = np.stack([x, side, 0.4 + 0.4 * u[:, 2]], 1)
+        elif label in (1, 2):  # tree crowns on trunks, bushes
+            k = max(1, int(length / (6 if label == 1 else 4)))
+            c = np.stack([rng.rand(k) * length,
+                          rng.choice([-1, 1], k) * (5 + 2 * rng.rand(k)),
+                          np.full(k, 4.0 if label == 1 else 0.5)], 1)
+            r = 1.5 if label == 1 else 0.5
+            d = rng.randn(n, 3)  # the crowns' and bushes' outer shells
+            d *= (r * (0.9 + 0.1 * u[:, :1])) / np.linalg.norm(
+                d, axis=1, keepdims=True)
+            p = c[rng.randint(0, k, n)] + d
+            if label == 1:  # a fifth of the points on the trunks
+                t = rng.rand(n) < 0.2
+                p[t, 2] = 2.5 * u[t, 2]
+                p[t, :2] = c[rng.randint(0, k, int(t.sum())), :2] + \
+                    0.15 * rng.randn(int(t.sum()), 2)
+        elif label in (6, 7, 8):  # signs, lights, poles at the kerb
+            k = max(1, int(length / 10))
+            c = np.stack([rng.rand(k) * length, rng.choice([-4.6, 4.6], k)],
+                         1)[rng.randint(0, k, n)]
+            if label == 8:
+                p = np.stack([c[:, 0] + 0.08 * rng.randn(n),
+                              c[:, 1] + 0.08 * rng.randn(n), 4 * u[:, 2]], 1)
+            else:
+                size = [0.05, 0.6, 0.6] if label == 6 else [0.3, 0.3, 0.9]
+                p = _box_surface(rng, n, np.zeros(3), size)
+                p[:, :2] += c
+                p[:, 2] += 2.5 if label == 6 else 4.0
+        else:  # cars (11), vans (12), trucks (10), misc (9): boxes
+            size = {11: [4.2, 1.8, 1.5], 12: [5.0, 2.0, 2.2],
+                    10: [8.0, 2.5, 3.2], 9: [0.6, 0.6, 0.8]}[label]
+            k = max(1, int(length / (8 if label == 11 else 15)))
+            c = np.stack([rng.rand(k) * length,
+                          rng.choice([-2.0, 2.0], k) if label != 9
+                          else rng.choice([-7.0, 7.0], k),
+                          np.full(k, size[2] / 2)], 1)
+            p = _box_surface(rng, n, c[rng.randint(0, k, n)], size)
+        parts.append((p, np.full(n, label)))
+    u = rng.rand(budget, 3)  # a backdrop across the street's far end
+    p = np.stack([length + 2 + 0.5 * u[:, 0], (u[:, 1] - 0.5) * 16,
+                  8 * u[:, 2]], 1)
+    parts.append((p, np.full(budget, 13)))
+    xyz = np.concatenate([q for q, _ in parts]).astype(np.float32)
+    labels = np.concatenate([lab for _, lab in parts]).astype(np.int32)
+    xyz += rng.randn(*xyz.shape).astype(np.float32) * noise
+    rgb = _STREET_RGB[labels] + rng.randn(len(labels), 3) * 12
+    rgb = np.clip(rgb, 0, 255).astype(np.uint8)
+    perm = rng.permutation(len(xyz))
+    return xyz[perm], rgb[perm], labels[perm]
+
+
+def write_vkitti_frame(path: Path, rng: np.random.RandomState,
+                       n_points: int) -> np.ndarray:
+    """`path` (.npy) holding a `synthetic_street` frame as vKITTI3D stores
+    one, float32 rows [x y z r g b label]; returns the raw labels."""
+    xyz, rgb, labels = synthetic_street(rng, n_points)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.save(path, np.hstack([xyz, rgb.astype(np.float32),
+                             labels[:, None].astype(np.float32)]))
+    return labels
+
+
+# LAS point record lengths by point format, and header sizes by minor
+# version (the public LAS 1.0-1.4 layouts)
+LAS_RECORD = {0: 20, 1: 28, 2: 26, 3: 34, 4: 57, 5: 63, 6: 30, 7: 36, 8: 38,
+              9: 59, 10: 67}
+LAS_HEADER = {0: 227, 1: 227, 2: 227, 3: 235, 4: 375}
+
+
+def write_las(path, xyz, version=(1, 2), point_format: int = 3,
+              scale=(0.001, 0.001, 0.001), offset=None, rgb=None):
+    """An uncompressed LAS file of `xyz` at `scale` from `offset` (default:
+    the cloud's min corner, rounded down), version 1.0-1.4 and any point
+    format. Formats 2, 3, 5, 7, 8 and 10 carry `rgb` (u8, stored x 256)
+    when given; every other field is zero. Version 1.4 stores the count in
+    its 64-bit field and leaves the legacy one 0. Returns the xyz the file
+    holds (float64)."""
+    import struct
+
+    xyz = np.asarray(xyz, np.float64)
+    n = len(xyz)
+    scale = np.asarray(scale, np.float64)
+    offset = (np.floor(xyz.min(0)) if offset is None
+              else np.asarray(offset, np.float64))
+    rlen, hsize = LAS_RECORD[point_format], LAS_HEADER[version[1]]
+    head = bytearray(hsize)
+    head[0:4] = b"LASF"
+    head[24], head[25] = version
+    struct.pack_into("<H", head, 94, hsize)
+    struct.pack_into("<I", head, 96, hsize)
+    head[104] = point_format
+    struct.pack_into("<H", head, 105, rlen)
+    struct.pack_into("<I", head, 107, 0 if version[1] >= 4 else n)
+    struct.pack_into("<3d", head, 131, *scale)
+    struct.pack_into("<3d", head, 155, *offset)
+    hi, lo = xyz.max(0), xyz.min(0)
+    struct.pack_into("<6d", head, 179, hi[0], lo[0], hi[1], lo[1], hi[2],
+                     lo[2])
+    if version[1] >= 4:
+        struct.pack_into("<Q", head, 247, n)
+    ints = np.round((xyz - offset) / scale).astype("<i4")
+    rec = np.zeros((n, rlen), np.uint8)
+    rec[:, :12] = ints.view(np.uint8).reshape(n, 12)
+    rgb_at = {2: 20, 3: 28, 5: 28, 7: 30, 8: 30, 10: 30}.get(point_format)
+    if rgb is not None and rgb_at is not None:
+        rec[:, rgb_at:rgb_at + 6] = (np.asarray(rgb, np.uint16) * 256).astype(
+            "<u2").view(np.uint8).reshape(n, 6)
+    with open(path, "wb") as f:
+        f.write(bytes(head))
+        f.write(rec.tobytes())
+    return ints * scale + offset

@@ -375,16 +375,16 @@ def ssp_trainer_factory(model_cfg, loss_cfg, state):
     return fresh
 
 
-def training_rooms(parts: dict, edge_attribs: str):
-    """({name: SPG entry}, {name: parsed rows}) of PartitionResults in
-    memory: the caches the training CLI reads from h5 files, without
-    them."""
+def training_rooms(parts: dict, edge_attribs: str, style: str = "s3dis"):
+    """({name: SPG entry}, {name: parsed rows in `style`}) of
+    PartitionResults in memory: the caches the training CLI reads from h5
+    files, without them."""
     from ..data.parsed import build_point_matrix, parsed_entries
     from ..data.spg_io import spg_entry
 
     entries = {n: spg_entry(p.graph_sp, edge_attribs, n)
                for n, p in parts.items()}
-    rows = {n: parsed_entries(build_point_matrix(p.xyz, p.rgb, p.geof),
+    rows = {n: parsed_entries(build_point_matrix(p.xyz, p.rgb, p.geof, style),
                               p.components) for n, p in parts.items()}
     return entries, rows
 

@@ -98,14 +98,15 @@ def test_partition_cli_files_read_by_jax(tree):
 
 
 def test_partition_cli_skips_and_refuses(tree, capsys):
-    """Existing caches are skipped; unported datasets raise and name the
-    roadmap; without a card the default device raises."""
+    """Existing caches are skipped; an unknown dataset raises (vkitti and
+    custom_dataset are partitioned since their readers were ported,
+    tests/test_torch_datasets_cli.py); without a card the default device
+    raises."""
     partition_t.main(["--ROOT_PATH", str(tree), *PARTITION], device="cpu")
     assert capsys.readouterr().out.count("already computed") == len(ROOMS)
-    for dataset in ("vkitti", "custom_dataset"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            partition_t.main(["--ROOT_PATH", str(tree), "--dataset", dataset],
-                             device="cpu")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        partition_t.main(["--ROOT_PATH", str(tree), "--dataset", "kitti"],
+                         device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             partition_t.main(["--ROOT_PATH", str(tree)])
@@ -152,8 +153,8 @@ def test_preprocess_matches_jax(tree, tmp_path):
     assert got == want and len(got) == len(ROOMS) + 1
     for rel in got:
         assert_h5_equal(tree / "parsed" / rel, other / "parsed" / rel)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parsed_t.preprocess_pointclouds(str(tree), "vkitti", 13)
+    with pytest.raises(ValueError, match="style"):
+        parsed_t.preprocess_pointclouds(str(tree), "kitti", 13)
 
 
 @pytest.fixture(scope="module")

@@ -310,3 +310,37 @@ def test_ssp_step_on_card_matches_cpu(dev):
     assert 1 < len(comps) < len(batch["xyz"])
     card_vs_cpu(fresh, batch, bn_fed_biases(first.model), "SSP step",
                 record=ssp_step_record(weights), device=dev)
+
+
+def test_submission_spread_on_card_matches_plain(dev, tmp_path):
+    """cli/write_semantic3d.write_submission on the card: the nn1 kernel's
+    spread (one launch plan a chunk of raw rows) gives the labels the
+    plain nn1 picks, written one a line, and the same file as on the
+    CPU."""
+    from superpoint_graph_tpu_torch.cli.write_semantic3d import (
+        write_submission)
+    from superpoint_graph_tpu_torch.data.synthetic import write_semantic3d_scan
+    from superpoint_graph_tpu_torch.ops.voxel import prune
+
+    raw = tmp_path / "station.txt"
+    write_semantic3d_scan(raw, 40_000, 3)
+    rows = np.loadtxt(raw, usecols=(0, 1, 2), dtype=np.float32)
+    xyz = prune(rows, 0.1, np.zeros((len(rows), 3), np.uint8), None, None,
+                0, 0, device="cpu")[0]
+    comps = np.array_split(np.random.RandomState(4).permutation(len(xyz)), 97)
+    pred = np.random.RandomState(5).randint(0, 8, len(comps))
+    before = nn1.launches
+    got = write_submission(str(tmp_path / "card.labels"), str(raw), xyz,
+                           comps, pred, 15_000, dev)
+    assert nn1.launches - before >= 6  # 3 chunks, 2 or 3 launches each
+    voxel_cls = np.zeros(len(xyz), np.uint8)
+    for c, comp in enumerate(comps):
+        voxel_cls[comp] = pred[c] + 1
+    idx = nn1_plain(torch.from_numpy(xyz).to(dev),
+                    torch.from_numpy(rows).to(dev)).cpu().numpy()
+    np.testing.assert_array_equal(got, voxel_cls[idx])
+    cpu = write_submission(str(tmp_path / "cpu.labels"), str(raw), xyz,
+                           comps, pred, 15_000, "cpu")
+    np.testing.assert_array_equal(cpu, got)
+    assert (tmp_path / "card.labels").read_bytes() == \
+        (tmp_path / "cpu.labels").read_bytes()

@@ -352,8 +352,9 @@ def _entry_point_calls():
     from superpoint_graph_tpu_torch.data import provider
     from superpoint_graph_tpu_torch.graph.spg_device import (
         compute_sp_graph_device)
-    from superpoint_graph_tpu_torch.cli import (ssp_evaluate, ssp_generate,
-                                                ssp_preprocess, ssp_train)
+    from superpoint_graph_tpu_torch.cli import (partition, ssp_evaluate,
+                                                ssp_generate, ssp_preprocess,
+                                                ssp_train, write_semantic3d)
     from superpoint_graph_tpu_torch.ssp import graph_processing as gp
     from superpoint_graph_tpu_torch.ssp.embed import SspModelConfig, SspTrainer
     from superpoint_graph_tpu_torch.ssp.losses import (SspLossConfig,
@@ -402,6 +403,16 @@ def _entry_point_calls():
         "ssp_train.main": lambda: ssp_train.main([]),
         "ssp_generate.main": lambda: ssp_generate.main([]),
         "ssp_evaluate.main": lambda: ssp_evaluate.main([]),
+        "partition_file[vkitti]": lambda: partition.partition_file(
+            "frame.npy", partition.parse_args(["--dataset", "vkitti"])),
+        "partition_file[custom_dataset]": lambda: partition.partition_file(
+            "cloud.ply", partition.parse_args(["--dataset",
+                                               "custom_dataset"])),
+        "preprocess_file[vkitti]": lambda: ssp_preprocess.preprocess_file(
+            "frame.npy", ssp_preprocess.parse_args(["--dataset", "vkitti"])),
+        "write_submission": lambda: write_semantic3d.write_submission(
+            "scan.labels", "scan.txt", xyz, [np.arange(50)], [0], 1000),
+        "write_semantic3d.main": lambda: write_semantic3d.main([]),
     }
 
 
@@ -414,7 +425,9 @@ def _entry_point_calls():
     "scan_batch", "label_scan", "build_supervision_structure",
     "preprocess_file", "SspTrainer", "compute_partition",
     "ssp_preprocess.main", "ssp_train.main", "ssp_generate.main",
-    "ssp_evaluate.main"])
+    "ssp_evaluate.main", "partition_file[vkitti]",
+    "partition_file[custom_dataset]", "preprocess_file[vkitti]",
+    "write_submission", "write_semantic3d.main"])
 def test_entry_points_default_to_card(name):
     """Called without `device`, every entry point asks for the card, and
     raises where there is none rather than run on the CPU."""
@@ -425,9 +438,10 @@ def test_entry_points_default_to_card(name):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (cli/ and ssp/ included), and
-    chip_smoke.py, imports without jax, flax, h5py, pandas, sklearn or any
-    module of the JAX package (a fresh interpreter)."""
+    """Every module of the port (cli/, ssp/ and the readers and ply
+    writers included), and chip_smoke.py, imports without jax, flax, h5py,
+    pandas, sklearn, laspy or any module of the JAX package (a fresh
+    interpreter)."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import superpoint_graph_tpu_torch as p\n"
@@ -455,13 +469,19 @@ def test_port_imports_no_jax():
         "        'superpoint_graph_tpu_torch.cli.ssp_preprocess',\n"
         "        'superpoint_graph_tpu_torch.cli.ssp_train',\n"
         "        'superpoint_graph_tpu_torch.cli.ssp_generate',\n"
-        "        'superpoint_graph_tpu_torch.cli.ssp_evaluate'} <= set(names), names\n"
+        "        'superpoint_graph_tpu_torch.cli.ssp_evaluate',\n"
+        "        'superpoint_graph_tpu_torch.cli.visualize',\n"
+        "        'superpoint_graph_tpu_torch.cli.write_semantic3d',\n"
+        "        'superpoint_graph_tpu_torch.utils.plyio',\n"
+        "        'superpoint_graph_tpu_torch.data.provider',\n"
+        "        'superpoint_graph_tpu_torch.data.synthetic'} <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = [m for m in ('jax', 'flax', 'h5py', 'pandas', 'sklearn')\n"
+        "bad = [m for m in ('jax', 'flax', 'h5py', 'pandas', 'sklearn',\n"
+        "                   'laspy')\n"
         "       if m in sys.modules]\n"
         "bad += [m for m in sys.modules if m == 'superpoint_graph_tpu'\n"
         "        or m.startswith('superpoint_graph_tpu.')]\n"

@@ -84,8 +84,9 @@ def test_ransac_matches_sklearn(seed, n, outliers):
 @pytest.mark.parametrize("style", ["s3dis", "sema3d"])
 def test_plane_elevation_rows_match_jax(style):
     """data/parsed.build_point_matrix with plane_elevation (the RANSAC
-    raise lifted) against the JAX package's (sklearn): 1e-5; the vKITTI
-    style still raises."""
+    raise lifted) against the JAX package's (sklearn): 1e-5; an unknown
+    style raises (vkitti and custom_dataset rows:
+    tests/test_torch_datasets_cli.py)."""
     from superpoint_graph_tpu.data import parsed as parsed_j
     from superpoint_graph_tpu_torch.data import parsed as parsed_t
 
@@ -96,8 +97,8 @@ def test_plane_elevation_rows_match_jax(style):
     got = parsed_t.build_point_matrix(xyz, rgb, geof, style,
                                       plane_elevation=True)
     np.testing.assert_allclose(got, want, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parsed_t.build_point_matrix(xyz, rgb, geof, "vkitti")
+    with pytest.raises(ValueError, match="style"):
+        parsed_t.build_point_matrix(xyz, rgb, geof, "kitti")
 
 
 # ------------------------------------------------------------ host parts

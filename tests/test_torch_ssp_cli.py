@@ -107,14 +107,15 @@ def test_preprocess_structures_cross_read(trees):
 
 
 def test_preprocess_skips_and_refuses(trees, capsys):
-    """Existing structures are skipped; vkitti raises and names the
-    roadmap."""
+    """Existing structures are skipped; an unknown dataset raises (vkitti
+    is preprocessed since its reader was ported,
+    tests/test_torch_ssp_vkitti.py)."""
     preprocess_t.main(["--ROOT_PATH", str(trees["t"]), *PREPROCESS],
                       device="cpu")
     assert capsys.readouterr().out.count("already computed") == len(ROOMS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown dataset"):
         preprocess_t.main(["--ROOT_PATH", str(trees["t"]), "--dataset",
-                           "vkitti"], device="cpu")
+                           "kitti"], device="cpu")
 
 
 @pytest.fixture(scope="module")
