@@ -138,7 +138,27 @@ one NVIDIA GPU.
 15. Visualize: cli/visualize.write_clouds on the room phase's result, all
    seven output types (igfprse); each ply read back with
    read_ply_elements equals the arrays written.
-16. Timing at the nn1 shapes, with CUDA events: the kernel (mean of 3
+16. Parallel (parallel/): the room's 1,000,000 raw points read again
+   (read_s3dis_format, nn1: "parallel" in the kernel line) and pruned, then
+   partition_shard.partition_cloud_sharded on PARALLEL_SHARDS shards of
+   the card, twice: the kNN table against compute_graph_nn_2's (distances
+   equal, indices but at exact ties), geof within 1e-5, the partition
+   against the single-card solve of the same voxels and graph
+   (SHARD_BOUNDS: same-component share, energy, components) and the
+   quality phase's exact solve (QUALITY_BOUNDS), every label connected, no
+   capped CC call, the two runs bit-identical; the slab rows and stage
+   seconds printed. partition_big_shard.partition_big_sharded on the scan
+   phase's voxels at windows of 2^19 rows against that phase's partition
+   (SCAN_BOUNDS energy and OOA, connected labels, no capped CC; seconds,
+   rounds, edges beyond the halo, peak memory). Then an NCCL group of one
+   rank (multihost.initialize at 127.0.0.1 and a free port): DP_STEPS
+   steps of parallel/dp.py's step and of Trainer.train_step from the
+   training phase's weights on its batches, losses, parameters and running
+   statistics bit for bit; the dp eval step equal to eval_step;
+   global_edge_scaler within 1e-5 of a float64 fit (its distance from
+   EdgeFeatScaler.fit printed); both steps/s and the all-reduce's share of
+   a step (CUDA events).
+17. Timing at the nn1 shapes, with CUDA events: the kernel (mean of 3
    calls after a warm-up), the plain version (one call on the queries it
    was checked on: all of them, or the sampled rows), one PyTorch call of
    the same function (torch.cdist in its matrix-product mode + argmin, in
@@ -146,10 +166,11 @@ one NVIDIA GPU.
    flops a pair, the 3 FMAs of the expanded form, at 67 TFLOP/s, or the
    bytes at 3.35 TB/s if larger). The direct-mode torch.cdist yardstick
    (~21 minutes at 1M x 1M) lives in tools/nn1_cdist_direct.py.
-17. One JSON line with the kernel table (top-level numbers at the read
+18. One JSON line with the kernel table (top-level numbers at the read
    shape, 1M x 1M; every shape under "shapes"; launches of each path,
-   the submission writer's included) and the training, SSP, custom,
-   vKITTI and output phases' numbers, the card line, and last
+   the submission writer's and the parallel phase's included) and the
+   training, SSP, custom, vKITTI, output and parallel phases' numbers, the
+   card line, and last
    {"ok": true, "device": {...}}.
 
 Exits non-zero on any failure, when no CUDA device is visible, or when run
@@ -163,10 +184,12 @@ import copy
 import dataclasses
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -319,7 +342,8 @@ def partition_quality(part, cfg, in_comp, components, seconds):
 
 def quality_phase(r, cfg, solve_stats):
     """The host exact solver on the slice's features and graph against the
-    device solver's partition; raises outside QUALITY_BOUNDS."""
+    device solver's partition; raises outside QUALITY_BOUNDS. Returns the
+    exact solver's numbers."""
     from superpoint_graph_tpu_torch.ops.cutpursuit import cutpursuit
     from superpoint_graph_tpu_torch.pipeline import (
         assemble_partition_features, edge_weights)
@@ -353,6 +377,7 @@ def quality_phase(r, cfg, solve_stats):
         raise AssertionError("a label is not one connected piece, or a CC "
                              f"call stopped at its cap: {device}, "
                              f"{solve_stats}")
+    return exact
 
 
 def same_component_share(a, b) -> float:
@@ -689,7 +714,10 @@ def train_phase(dev, tmp, room_part, points=TRAIN_ROOM_POINTS):
     """The training path on `dev` (phase 9; tools/torch_train_phase_cpu.py
     runs it on the CPU with smaller rooms) on TRAIN_ROOMS rooms of `points`
     raw points: returns (nn1 launches of the partition CLI's runs, the nn1
-    checks at its rooms' read shapes, the phase's numbers)."""
+    checks at its rooms' read shapes, the phase's numbers, and for the
+    parallel phase {"fresh": a trainer factory of the trained weights,
+    "batches": its drawn batches, "train_entries": the training rooms' SPG
+    entries before scaling})."""
     import torch
 
     from superpoint_graph_tpu_torch.cli import partition as cli_partition
@@ -887,7 +915,9 @@ def train_phase(dev, tmp, room_part, points=TRAIN_ROOM_POINTS):
               "superpoints_per_batch", "max_memory_allocated_gib", "phase_s"):
         print(f"[train] {k}: {out[k]}")
     sys.stdout.flush()
-    return launches, checks, out
+    ctx = {"fresh": fresh, "batches": batches,
+           "train_entries": [entries[n] for n in train_names]}
+    return launches, checks, out, ctx
 
 
 # the supervised partition (SSP): five more synthetic rooms through
@@ -1743,6 +1773,302 @@ def visualize_phase(tmp, r):
     return out
 
 
+# the parallel phase: the room's and the station's partitions with their
+# tables over PARALLEL_SHARDS shards of the card, then data-parallel steps
+# of the flagship in an NCCL group of one rank. The sharded room against
+# the single-card solve of the same voxels, graph and pad rows: the share
+# of voxels in a superpoint found by both at least, energy ratio within,
+# component counts apart at most (the JAX package's bar for a sharded
+# solve, tests/test_parallel.py:123-127; the energy within 0.1%)
+PARALLEL_SHARDS = 4
+SHARD_BOUNDS = {"same_component": 0.999, "energy_ratio": 1.001,
+                "n_comp_diff": 2}
+DP_STEPS = 20
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_room(dev, tmp, room, cfg, exact):
+    """partition_cloud_sharded on PARALLEL_SHARDS shards of `dev`, twice,
+    on the room read again (read_s3dis_format, its nn1 launches counted)
+    and pruned. Checks against the single-device path on the same voxels:
+    the kNN table equal to compute_graph_nn_2's (distances equal, indices
+    but at exact ties), geof within 1e-5, the partition within
+    SHARD_BOUNDS of the single-card solve and QUALITY_BOUNDS of `exact`
+    (the quality phase's exact solve of the room), every label one
+    connected piece, no capped CC call, the two runs bit-identical.
+    Returns (nn1 launches of the read, numbers)."""
+    import torch
+
+    from superpoint_graph_tpu_torch.data.provider import read_s3dis_format
+    from superpoint_graph_tpu_torch.data.synthetic import write_s3dis_room
+    from superpoint_graph_tpu_torch.ops import cutpursuit_band as cb
+    from superpoint_graph_tpu_torch.ops.knn import sqdist
+    from superpoint_graph_tpu_torch.ops.nn1 import nn1
+    from superpoint_graph_tpu_torch.ops.voxel import prune
+    from superpoint_graph_tpu_torch.parallel import partition_shard as ps
+    from superpoint_graph_tpu_torch.parallel.mesh import make_mesh
+    from superpoint_graph_tpu_torch.pipeline import (
+        assemble_partition_features, edge_weights, partition_features)
+
+    raw_path, _, _ = write_s3dis_room(Path(tmp) / "Area_1" / "room_0",
+                                      np.random.RandomState(SEED), N_POINTS)
+    nn1.launches = 0
+    xyz, rgb, labels, objects = read_s3dis_format(str(raw_path), device=dev)
+    launches = nn1.launches
+    vox, vrgb, vlab, _ = prune(xyz, cfg.voxel_width, rgb, labels, objects,
+                               13, int(objects.max()) + 1, device=dev)
+    if not np.array_equal(vox, room.xyz):
+        raise AssertionError("the room's voxels differ from the room phase's")
+    mesh = make_mesh(devices=[dev] * PARALLEL_SHARDS)
+    runs = []
+    for _ in range(2):
+        with recorded(ps, "sharded_knn_geof", sync=dev) as knn_calls, \
+                recorded(ps, "cutpursuit_band_sharded", sync=dev) as cp_calls:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = ps.partition_cloud_sharded(vox, vrgb, cfg, mesh)
+            seconds = time.perf_counter() - t0
+        runs.append({"out": out, "idx": knn_calls[0][0][2],
+                     "seconds": {"total": seconds, "knn_geof": knn_calls[0][1],
+                                 "cut_pursuit": cp_calls[0][1]},
+                     "layout": copy.deepcopy(ps.LAST_SHARD_STATS),
+                     "solve": dict(cb.LAST_SOLVE_STATS)})
+    g_s, geof_s, comps_s, ic_s = runs[0]["out"]
+    same_runs = (np.array_equal(ic_s, runs[1]["out"][3])
+                 and np.array_equal(runs[0]["idx"], runs[1]["idx"])
+                 and np.array_equal(geof_s, runs[1]["out"][1]))
+
+    # the single-device path on the same voxels
+    g_1, geof_1, tabs = partition_features(vox, cfg, device=dev,
+                                           return_device=True)
+    vox_t = torch.as_tensor(vox, device=dev)
+    idx_s = torch.as_tensor(runs[0]["idx"], device=dev)
+    d2_s = sqdist(vox_t[:, None, :], vox_t[idx_s])
+    d2_equal = torch.equal(d2_s, tabs["d2"])
+    idx_differ = int((idx_s != tabs["idx"]).sum())
+    # a differing index must sit at a distance its row holds twice (a tie)
+    rows, cols = torch.nonzero(idx_s != tabs["idx"], as_tuple=True)
+    ties = bool(((tabs["d2"][rows] == tabs["d2"][rows, cols][:, None])
+                 .sum(1) > 1).all()) if len(rows) else True
+    same_set = (torch.sort(idx_s, 1).values
+                == torch.sort(tabs["idx"], 1).values).all(1).cpu().numpy()
+    geof_err = float(np.abs(geof_s - geof_1)[same_set].max())
+    feats = assemble_partition_features(geof_s, vrgb, cfg)
+    src = g_s["source"].astype(np.int64)
+    tgt = g_s["target"].astype(np.int64)
+    w = edge_weights(g_s["distances"], cfg.lambda_edge_weight)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    comps_1, ic_1 = cb.cutpursuit_band(feats, src, tgt, w, cfg.reg_strength,
+                                       cutoff=cfg.cp_cutoff, xyz=vox,
+                                       device=dev)
+    single_s = time.perf_counter() - t0
+    single_solve = dict(cb.LAST_SOLVE_STATS)
+    own = types.SimpleNamespace(geof=geof_s, rgb=vrgb, graph_nn=g_s,
+                                labels=vlab)
+    q_s = partition_quality(own, cfg, ic_s, comps_s,
+                            runs[0]["seconds"]["cut_pursuit"])
+    q_1 = partition_quality(own, cfg, ic_1, comps_1, single_s)
+    on_room = partition_quality(room, cfg, ic_s, comps_s, 0.0)
+    cmp = {"same_component": same_component_share(ic_s, ic_1),
+           "energy_ratio": q_s["energy"] / q_1["energy"],
+           "n_comp_diff": abs(q_s["n_comp"] - q_1["n_comp"]),
+           "vs_exact": {"energy_ratio": on_room["energy"] / exact["energy"],
+                        "n_comp_ratio": on_room["n_comp"] / exact["n_comp"],
+                        "ooa_drop": exact["OOA"] - on_room["OOA"]}}
+    out = {"voxels": len(vox), "nn1_launches": launches,
+           "knn": {"d2_equal": d2_equal, "indices_differ": idx_differ,
+                   "differ_at_ties": ties,
+                   "rows_same_set": float(same_set.mean()),
+                   "geof_max_abs_same_set": geof_err,
+                   "geof_max_abs": float(np.abs(geof_s - geof_1).max())},
+           "sharded": q_s, "single_card": q_1, "compare": cmp,
+           "runs_bit_identical": same_runs,
+           "seconds": [r_["seconds"] for r_ in runs],
+           "layout": runs[0]["layout"], "solve": runs[0]["solve"],
+           "single_card_solve": single_solve}
+    print(f"[parallel] room on {PARALLEL_SHARDS} shards: {json.dumps(out)}; "
+          f"bounds {json.dumps(SHARD_BOUNDS)}, {json.dumps(QUALITY_BOUNDS)}",
+          flush=True)
+    lo, hi = QUALITY_BOUNDS["n_comp_ratio"]
+    vs = cmp["vs_exact"]
+    if not (d2_equal and ties and geof_err <= 1e-5 and same_runs
+            and cmp["same_component"] >= SHARD_BOUNDS["same_component"]
+            and abs(cmp["energy_ratio"] - 1) <= SHARD_BOUNDS["energy_ratio"] - 1
+            and cmp["n_comp_diff"] <= SHARD_BOUNDS["n_comp_diff"]
+            and vs["energy_ratio"] <= QUALITY_BOUNDS["energy_ratio"]
+            and lo <= vs["n_comp_ratio"] <= hi
+            and vs["ooa_drop"] <= QUALITY_BOUNDS["ooa_drop"]
+            and q_s["disconnected_labels"] == 0
+            and runs[0]["solve"]["cc_capped"] == 0):
+        raise AssertionError(f"the sharded room is outside its bounds: {out}")
+    if dev.type == "cuda" and launches < 2:
+        raise AssertionError(f"nn1 launched {launches} times on the read")
+    return launches, out
+
+
+def sharded_station(dev, scan_part, cfg):
+    """partition_big_sharded on PARALLEL_SHARDS shards of `dev` on the scan
+    phase's voxels, against that phase's partition_cloud_big result on its
+    features and graph: energy within SCAN_BOUNDS, every label one
+    connected piece, no capped CC call. Returns the numbers."""
+    import torch
+
+    from superpoint_graph_tpu_torch.parallel import partition_big_shard as pbs
+    from superpoint_graph_tpu_torch.parallel import partition_shard as ps
+    from superpoint_graph_tpu_torch.parallel.mesh import make_mesh
+    from superpoint_graph_tpu_torch.pipeline_big import CHUNK_POINTS
+
+    mesh = make_mesh(devices=[dev] * PARALLEL_SHARDS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, _, comps, ic = pbs.partition_big_sharded(
+        scan_part.xyz, scan_part.rgb, cfg, mesh, chunk_points=CHUNK_POINTS)
+    seconds = time.perf_counter() - t0
+    stats = dict(pbs.LAST_SHARDED_CP_STATS)
+    sharded = partition_quality(scan_part, cfg, ic, comps, seconds)
+    path = partition_quality(scan_part, cfg, scan_part.in_component,
+                             scan_part.components, 0.0)
+    out = {"voxels": len(scan_part.xyz), "seconds": seconds,
+           "sharded": sharded, "single_card": path,
+           "energy_ratio": sharded["energy"] / path["energy"],
+           "ooa_drop": path["OOA"] - sharded["OOA"],
+           "cut_pursuit": stats, "knn_layout": ps.LAST_SHARD_STATS["knn"],
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated(dev) / 2**30}
+    print(f"[parallel] station on {PARALLEL_SHARDS} shards: "
+          f"{json.dumps(out)}; bounds {json.dumps(SCAN_BOUNDS)}", flush=True)
+    if not (out["energy_ratio"] <= SCAN_BOUNDS["energy_ratio"]
+            and out["ooa_drop"] <= SCAN_BOUNDS["ooa_drop"]
+            and sharded["disconnected_labels"] == 0
+            and stats["cc_capped"] == 0):
+        raise AssertionError(f"the sharded station is outside its bounds: "
+                             f"{out}")
+    return out
+
+
+def dp_steps(dev, ctx):
+    """The flagship's data-parallel step (parallel/dp.py) in an NCCL group
+    of one rank on `dev`, joined by multihost.initialize at an explicit
+    address: DP_STEPS steps against Trainer.train_step from the same
+    weights and generator seed, losses, parameters and running statistics
+    bit for bit (deterministic kernels on both); the dp eval step equal to
+    eval_step; global_edge_scaler of the training entries within 1e-5 of
+    their float64 fit (the mean by its scale; its distance from
+    EdgeFeatScaler.fit printed). Then both steps' steps/s (CUDA events)
+    and the all-reduce's share of a step. Returns the numbers."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from superpoint_graph_tpu_torch.data.spg_io import EdgeFeatScaler
+    from superpoint_graph_tpu_torch.parallel import multihost
+    from superpoint_graph_tpu_torch.parallel.dp import (allreduce_mean,
+                                                        make_dp_eval_step,
+                                                        make_dp_train_step,
+                                                        running_stats)
+
+    fresh, batches = ctx["fresh"], ctx["batches"]
+    address = f"tcp://127.0.0.1:{free_port()}"
+    # one host: NCCL's bootstrap on the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    multihost.initialize(address, 1, 0, device=dev)
+    try:
+        a, b = fresh(dev), fresh(dev)
+        step = make_dp_train_step(a)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                pairs = [(step(bt)[0], b.train_step(bt)[0]) for bt in
+                         (batches[i % len(batches)] for i in range(DP_STEPS))]
+                ev = (make_dp_eval_step(a)(batches[0]),
+                      a.eval_step(batches[0]))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        equal = {
+            "losses": all(torch.equal(x, y) for x, y in pairs),
+            "parameters": all(torch.equal(p, q) for p, q in
+                              zip(a.model.parameters(),
+                                  b.model.parameters())),
+            "running_stats": all(torch.equal(p, q) for p, q in
+                                 zip(running_stats(a.model),
+                                     running_stats(b.model))),
+            "eval": (torch.equal(ev[0][0], ev[1][0])
+                     and torch.equal(ev[0][1], ev[1][1]))}
+        # the scaler of the union: the moments' against a float64 fit (the
+        # reference's StandardScaler accumulates in float64), and its
+        # distance from EdgeFeatScaler.fit, whose float32 column sums
+        # numpy adds row by row
+        feats = np.concatenate([e[3] for e in ctx["train_entries"]])
+        s_g = multihost.global_edge_scaler(ctx["train_entries"])
+        s_f = EdgeFeatScaler().fit(ctx["train_entries"])
+        mean64 = feats.astype(np.float64).mean(0)
+        std64 = feats.astype(np.float64).std(0)
+        scale64 = np.where(std64 == 0, 1.0, std64)
+        scaler = {
+            "rows": len(feats),
+            "vs_f64": {"mean_by_scale": float(np.max(np.abs(
+                s_g.mean - mean64) / scale64)), "scale_rel": float(np.max(
+                    np.abs(s_g.scale / scale64 - 1)))},
+            "vs_fit": {"mean_by_scale": float(np.max(np.abs(
+                s_g.mean - s_f.mean) / s_f.scale)), "scale_rel": float(
+                    np.max(np.abs(s_g.scale / s_f.scale - 1)))},
+            "fit_vs_f64": {"mean_by_scale": float(np.max(np.abs(
+                s_f.mean - mean64) / scale64)), "scale_rel": float(np.max(
+                    np.abs(s_f.scale / scale64 - 1)))}}
+        scaler_ok = max(scaler["vs_f64"].values()) <= 1e-5
+
+        def steps(fn):
+            for i in range(WARM_STEPS):
+                fn(batches[i % len(batches)])
+            return timed(lambda: [fn(batches[i % len(batches)])
+                                  for i in range(TIMED_STEPS)])[1] / TIMED_STEPS
+
+        dp_ms = steps(make_dp_train_step(fresh(dev)))
+        plain_ms = steps(fresh(dev).train_step)
+        grads = [p.grad for p in a.params]
+        tensors = [torch.zeros((), device=dev)] + grads + running_stats(
+            a.model)
+        reduce_ms = cuda_ms(lambda: allreduce_mean(tensors), TIMED_STEPS)
+    finally:
+        dist.destroy_process_group()
+    out = {"address": address, "world_size": 1, "steps": DP_STEPS,
+           "bit_equal": equal, "scaler": scaler,
+           "dp_steps_per_s": 1e3 / dp_ms, "train_steps_per_s": 1e3 / plain_ms,
+           "dp_step_ms": dp_ms, "train_step_ms": plain_ms,
+           "allreduce_ms": reduce_ms, "allreduce_share": reduce_ms / dp_ms,
+           "allreduce_numel": int(sum(t.numel() for t in tensors))}
+    print(f"[parallel] data parallel, NCCL world 1: {json.dumps(out)}",
+          flush=True)
+    if not (all(equal.values()) and scaler_ok):
+        raise AssertionError(f"the dp step differs from train_step: {out}")
+    return out
+
+
+def parallel_phase(dev, tmp, room, cfg, exact, scan_part, scan_cfg, ctx):
+    """Phase 16: the sharded room, the sharded station and data-parallel
+    training (the functions above). Returns (nn1 launches of the room's
+    read, the phase's numbers)."""
+    t0 = time.perf_counter()
+    launches, room_out = sharded_room(dev, tmp, room, cfg, exact)
+    station = sharded_station(dev, scan_part, scan_cfg)
+    dp = dp_steps(dev, ctx)
+    out = {"shards": PARALLEL_SHARDS, "room": room_out, "station": station,
+           "dp": dp, "phase_s": time.perf_counter() - t0}
+    print(f"[parallel] phase_s: {out['phase_s']}", flush=True)
+    return launches, out
+
+
 def main() -> int:
     if not (ROOT / "superpoint_graph_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1764,6 +2090,7 @@ def main() -> int:
     from superpoint_graph_tpu_torch.ops.nn1_cases import nn1_cases
     from superpoint_graph_tpu_torch.pipeline import PartitionConfig
     from superpoint_graph_tpu_torch.room import label_room
+    from superpoint_graph_tpu_torch.scan import SEMA3D_CONFIG
 
     dev = cuda_device(0)
     # ---- 1. header
@@ -1882,13 +2209,13 @@ def main() -> int:
     if not np.allclose(r.logits, cpu_logits, atol=1e-3, rtol=1e-3):
         raise AssertionError("model logits on the card disagree with the CPU")
 
-    quality_phase(r, cfg, solve_stats)
+    exact = quality_phase(r, cfg, solve_stats)
     run_to_run_phase(r, cfg, raw, dev)
 
     # ---- 9. the training path; only its own nn1 launches are counted
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, checks_train, train = train_phase(dev, tmp,
-                                                          r.partition)
+        train_launches, checks_train, train, train_ctx = train_phase(
+            dev, tmp, r.partition)
     checks += checks_train
 
     # ---- 10. the scan path, then (12) the submission writer on its
@@ -1898,6 +2225,7 @@ def main() -> int:
             scan_phase(dev, tmp)
         submission_launches, submission = submission_phase(dev, tmp, scan,
                                                            scan_path)
+    scan_part = scan.partition
     del scan
     checks += checks_scan
 
@@ -1917,7 +2245,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         visualize = visualize_phase(tmp, r)
 
-    # ---- 16. nn1 at its shapes: kernel, plain (on plain_rows sampled
+    # ---- 16. the parallel phase: the room and the station sharded over
+    # the card, data-parallel training; only the room read's nn1 launches
+    # are counted
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel_launches, parallel = parallel_phase(
+            dev, tmp, r.partition, cfg, exact, scan_part, SEMA3D_CONFIG,
+            train_ctx)
+    del scan_part, train_ctx
+
+    # ---- 17. nn1 at its shapes: kernel, plain (on plain_rows sampled
     # queries where given), library, bound
     shapes = []
     for (db, q, check, name) in (
@@ -1936,7 +2273,7 @@ def main() -> int:
             "splits": nn1_plan(len(q), len(db))[0]})
         print(f"[time] nn1 {json.dumps(shapes[-1])}", flush=True)
 
-    # ---- 17. result lines; the top-level numbers are the read shape's
+    # ---- 18. result lines; the top-level numbers are the read shape's
     # (1M x 1M, the largest launch of the room path)
     read = shapes[0]
     kernels = [{
@@ -1947,7 +2284,8 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"room": launches, "train": train_launches,
                              "scan": scan_launches, "ssp": ssp_launches,
-                             "submission": submission_launches},
+                             "submission": submission_launches,
+                             "parallel": parallel_launches},
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         **{k: read[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "shape")},
@@ -1956,6 +2294,7 @@ def main() -> int:
     }]
     print(json.dumps({"kernels": kernels, "train": train, "ssp": ssp,
                       "custom": custom, "vkitti": vkitti,
+                      "parallel": parallel,
                       "outputs": {"submission": submission,
                                   "visualize": visualize}}))
     print(f"[card] {smi}")

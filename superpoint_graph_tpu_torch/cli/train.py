@@ -8,8 +8,19 @@ and saves model.ckpt; the last step is a multisample evaluation (logits
 averaged over test_multisamp_n reseeded superpoint samplings) that writes
 predictions_<db>.h5, scores_<db>.json and pointwise_cm.npy. trainlog.json,
 cmdline.txt and resume (the model rebuilt from the checkpoint's own args)
-as in the JAX CLI. The multi-host branch of the JAX CLI (:324-339) is not
-ported (ROADMAP queue 1 item 6).
+as in the JAX CLI.
+
+Several ranks (the JAX CLI's multi-host branch, :321-339): where the
+caller has joined a process group of more than one rank
+(parallel/multihost.initialize) before `main`, each rank reads its
+round-robin shard of the training files, the edge scaler is fitted on all
+shards (`get_datasets_multihost`), and every training step is
+parallel/dp.py's, so all ranks keep one model. Every rank evaluates the
+full test and validation sets; only rank 0 writes into odir. The JAX CLI
+steps each host alone and lets every host write the same files (ROADMAP
+queue 3); the port does not copy that. Every rank must take the same
+number of steps: a batch that loads no cloud on one rank alone would
+stall the others' all-reduce.
 
 `run_epoch` and `eval_final` take each cloud's parsed rows through a
 callable name -> Mapping: `main` opens parsed/<name>.h5 (h5py, imported
@@ -187,9 +198,10 @@ def _account(cm, batch, logits):
 
 def run_epoch(trainer, entries, names, parsed_rows, loader_cfg, n_ch, dbinfo,
               train, rng_np, batch_size, test_seed_offset=0, nworkers=0,
-              steps_per_dispatch=1):
+              steps_per_dispatch=1, train_step=None):
     """One pass over `entries` (train: shuffled by rng_np, batches of
-    batch_size; else one cloud a batch, eval mode). Returns (mean loss,
+    batch_size, each stepped by `train_step` when given, the trainer's
+    own step otherwise; else one cloud a batch, eval mode). Returns (mean loss,
     ConfusionMatrix, info) with info's host seconds loading and collating
     ("load_s"), seconds in the device steps ("step_s", synchronised by the
     loss fetch), batches and superpoints per batch.
@@ -229,7 +241,8 @@ def run_epoch(trainer, entries, names, parsed_rows, loader_cfg, n_ch, dbinfo,
 
     def flush():
         t0 = time.perf_counter()
-        out_losses, out_logits = trainer.train_steps(pending)
+        out_losses, out_logits = trainer.train_steps(pending,
+                                                     step=train_step)
         out_losses = out_losses.cpu().numpy()
         info["step_s"] += time.perf_counter() - t0
         for b, loss, logits in zip(pending, out_losses, out_logits):
@@ -311,21 +324,34 @@ def main(argv=None, device=None):
     from ..data.spg_io import EdgeFeatScaler
     from ..learn.checkpoint import (load_checkpoint, read_checkpoint_args,
                                     save_checkpoint)
+    from ..parallel.dp import make_dp_train_step
+    from ..parallel.multihost import get_datasets_multihost, process_info
 
     args = parse_args(argv)
     device = card_unless(device)
-    os.makedirs(args.odir, exist_ok=True)
-    with open(os.path.join(args.odir, "cmdline.txt"), "w") as f:
-        f.write(" ".join(sys.argv[:1] + (sys.argv[1:] if argv is None
-                                         else list(argv))))
+    rank, world = process_info()
+    writer = rank == 0
+    if writer:
+        os.makedirs(args.odir, exist_ok=True)
+        with open(os.path.join(args.odir, "cmdline.txt"), "w") as f:
+            f.write(" ".join(sys.argv[:1] + (sys.argv[1:] if argv is None
+                                             else list(argv))))
 
     root = dataset_root(args)
     dbinfo = ds.get_info(args.dataset, root, args.edge_attribs,
                          args.pc_attribs, args.loss_weights, args.cvfold)
-    trainlist, testlist, validlist, scaler = ds.get_datasets(
-        args.dataset, root, args.edge_attribs, args.spg_superedge_cutoff,
-        bool(args.spg_attribs01), args.cvfold, bool(args.use_val_set),
-        args.db_train_name, args.db_test_name)
+    if world > 1:
+        trainlist, testlist, validlist, scaler = get_datasets_multihost(
+            args.dataset, root, args.edge_attribs,
+            spg_superedge_cutoff=args.spg_superedge_cutoff,
+            spg_attribs01=bool(args.spg_attribs01), cvfold=args.cvfold,
+            use_val_set=bool(args.use_val_set),
+            db_train_name=args.db_train_name, db_test_name=args.db_test_name)
+    else:
+        trainlist, testlist, validlist, scaler = ds.get_datasets(
+            args.dataset, root, args.edge_attribs, args.spg_superedge_cutoff,
+            bool(args.spg_attribs01), args.cvfold, bool(args.use_val_set),
+            args.db_train_name, args.db_test_name)
     train_names = [e[4] for e in trainlist]
     test_names = [e[4] for e in testlist]
     valid_names = [e[4] for e in validlist]
@@ -366,10 +392,13 @@ def main(argv=None, device=None):
         return vars(args) | {"lr_steps": list(args.lr_steps)}
 
     def save(fname, epoch):
+        if not writer:
+            return
         save_checkpoint(os.path.join(args.odir, fname), trainer.state_dict(),
                         epoch, ckpt_args(),
                         scaler.state_dict() if scaler else None)
 
+    train_step = make_dp_train_step(trainer) if world > 1 else None
     best_val = -1.0
     for epoch in range(args.start_epoch, args.epochs):
         trainer.set_epoch_lr(epoch)
@@ -377,7 +406,7 @@ def main(argv=None, device=None):
         tr_loss, tr_cm, _ = run_epoch(
             trainer, trainlist, train_names, parsed_rows, loader_cfg, n_ch,
             dbinfo, True, rng_np, args.batch_size, nworkers=args.nworkers,
-            steps_per_dispatch=args.steps_per_dispatch)
+            steps_per_dispatch=args.steps_per_dispatch, train_step=train_step)
         entry = {"epoch": epoch, "loss": tr_loss,
                  "acc": 100 * tr_cm.get_overall_accuracy(),
                  "time": time.time() - t0}
@@ -400,8 +429,9 @@ def main(argv=None, device=None):
         print(json.dumps(entry))
         if args.save_nth_epoch > 0 and (epoch + 1) % args.save_nth_epoch == 0:
             save("model.ckpt", epoch + 1)
-        with open(os.path.join(args.odir, "trainlog.json"), "w") as f:
-            json.dump(stats, f, indent=2)
+        if writer:
+            with open(os.path.join(args.odir, "trainlog.json"), "w") as f:
+                json.dump(stats, f, indent=2)
         if not np.isfinite(tr_loss):
             print("NaN loss, aborting")
             break
@@ -409,17 +439,19 @@ def main(argv=None, device=None):
     if testlist:
         predictions, cm = eval_final(args, trainer, testlist, test_names,
                                      parsed_rows, loader_cfg, n_ch, dbinfo)
-        with h5py.File(os.path.join(
-                args.odir, f"predictions_{args.db_test_name}.h5"), "w") as f:
-            for name, pred in predictions.items():
-                f.create_dataset(name.replace("/", "__"),
-                                 data=pred.astype(np.int32))
         scores = _scores(cm, dbinfo)
-        with open(os.path.join(args.odir,
-                               f"scores_{args.db_test_name}.json"), "w") as f:
-            json.dump(scores, f, indent=2)
-        np.save(os.path.join(args.odir, "pointwise_cm.npy"),
-                cm.confusion_matrix)
+        if writer:
+            with h5py.File(os.path.join(
+                    args.odir, f"predictions_{args.db_test_name}.h5"),
+                    "w") as f:
+                for name, pred in predictions.items():
+                    f.create_dataset(name.replace("/", "__"),
+                                     data=pred.astype(np.int32))
+            with open(os.path.join(
+                    args.odir, f"scores_{args.db_test_name}.json"), "w") as f:
+                json.dump(scores, f, indent=2)
+            np.save(os.path.join(args.odir, "pointwise_cm.npy"),
+                    cm.confusion_matrix)
         print(json.dumps({"final": scores["oacc"],
                           "miou": scores["avg_iou"]}))
 

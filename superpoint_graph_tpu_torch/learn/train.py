@@ -128,12 +128,15 @@ class Trainer:
         self.apply_grads()
         return loss, logits
 
-    def train_steps(self, batches: Sequence, generator=None):
+    def train_steps(self, batches: Sequence, generator=None, step=None):
         """len(batches) optimizer steps, one after another. The JAX package
         groups them into one dispatch (lax.scan) to save the TPU's launch
         latency; eager torch has no dispatch to save, so this is
-        `train_step` in a loop. Returns (losses [K], list of logits)."""
-        out = [self.train_step(b, generator) for b in batches]
+        `train_step` in a loop, or `step(batch)` in its place (the
+        data-parallel step of parallel/dp.py). Returns (losses [K], list
+        of logits)."""
+        out = [self.train_step(b, generator) if step is None else step(b)
+               for b in batches]
         return torch.stack([o[0] for o in out]), [o[1] for o in out]
 
     @torch.no_grad()

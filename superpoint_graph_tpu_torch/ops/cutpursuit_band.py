@@ -110,15 +110,18 @@ class _Segments:
     near its threshold could then flip between two calls. `presorted`: the
     rows are in id order already (the CSR edge list)."""
 
-    def __init__(self, seg, n, presorted=False):
+    def __init__(self, seg, n, presorted=False, reduce=None):
         self.order = None if presorted else torch.sort(seg, stable=True).indices
+        # a sharded solve's psum of the shards' partial sums (None: whole)
+        self.reduce = reduce
         # integer adds: the same counts in any order, and no host read
         self.lengths = torch.zeros(n, dtype=torch.int64,
                                    device=seg.device).index_add_(
             0, seg, torch.ones_like(seg))
 
     def sum(self, data):
-        cols = data.reshape(len(data), -1).T
+        # (flatten, not reshape(n, -1): a shard may hold no rows)
+        cols = (data[:, None] if data.ndim == 1 else data.flatten(1)).T
         cols = cols[:, self.order] if self.order is not None else cols
         # one column at a time: on CUDA the 1-D form sums a segment with a
         # block of threads, the 2-D form with one thread a segment and
@@ -128,11 +131,24 @@ class _Segments:
         out = torch.stack([torch.segment_reduce(c.contiguous(), "sum",
                                                 lengths=self.lengths,
                                                 unsafe=True) for c in cols], 1)
-        return out.reshape((len(self.lengths),) + data.shape[1:])
+        out = out.reshape((len(self.lengths),) + data.shape[1:])
+        return out if self.reduce is None else self.reduce(out)
 
     def mean(self, data, weights):
         s = self.sum(torch.cat([data * weights[:, None], weights[:, None]], 1))
         return s[:, :-1] / torch.clamp(s[:, -1:], min=1e-12)
+
+
+def _same(x):
+    return x
+
+
+def _shard_rows(shard, n: int):
+    """(first row, slice of the rows, all-gather) of a solve's shard; the
+    whole [0, n) and the identity without one."""
+    if shard is None:
+        return 0, slice(0, n), _same
+    return shard.row0, slice(shard.row0, shard.row1), shard.all_gather
 
 
 def _seg_any(mask, seg, n):
@@ -141,25 +157,30 @@ def _seg_any(mask, seg, n):
 
 
 def cc_labels(key, src, tgt, w, *, cc_rounds: int = CC_ROUNDS,
-              cc_sweeps_per_round: int = 4, cc_jumps: int = 1, read=bool):
+              cc_sweeps_per_round: int = 4, cc_jumps: int = 1, read=bool,
+              shard=None):
     """Connected components of the graph of the edges (w > 0) whose two ends
     have the same `key` (the JAX `cc_full`): a label is the least position
     of its component. A round is `cc_sweeps_per_round` Jacobi min sweeps
     over all edges, then `cc_jumps` pointer jumps; rounds run until one
     changes no label or `cc_rounds` have run. `read` turns the 0-d
-    "changed" tensor into a bool (a host read).
+    "changed" tensor into a bool (a host read). `shard`: as in `solve`;
+    the edges are then the shard's (src in its rows), each sweep updates
+    its rows and all-gathers them.
 
     Returns (labels [n] int64, rounds, capped): capped is True when the cap
     stopped the loop while labels were still changing."""
     n = key.shape[0]
+    row0, rows, gather = _shard_rows(shard, n)
     same = (key[src] == key[tgt]) & (w > 0)
+    src_loc = src - row0
     lab = torch.arange(n, device=key.device)
     rounds, changed = 0, True
     while changed and rounds < cc_rounds:
         new = lab
         for _ in range(cc_sweeps_per_round):
             cand = torch.where(same, new[tgt], n)
-            new = new.scatter_reduce(0, src, cand, "amin")
+            new = gather(new[rows].scatter_reduce(0, src_loc, cand, "amin"))
         for _ in range(cc_jumps):
             new = torch.minimum(new, new[new])
         changed = read(torch.any(new != lab))
@@ -172,7 +193,7 @@ def solve(f, src, tgt, w, nw, reg, weight_decay=1.0, *, pad_rows: int = 0,
           max_iter: int = 8, icm_sweeps: int = 3, flow_steps: int = 2,
           power_iters: int = 8, cc_rounds: int = CC_ROUNDS,
           cc_sweeps_per_round: int = 4, cc_jumps: int = 1,
-          accept: str = "global", stop_tol: float = 0.0):
+          accept: str = "global", stop_tol: float = 0.0, shard=None):
     """The JAX `_solve_band` on an edge list. f [n, d] f32 features and nw
     [n] node weights in Morton order; (src, tgt, w) the symmetrised directed
     edges in Morton positions, sorted by source. `pad_rows`: the JAX rows
@@ -180,16 +201,28 @@ def solve(f, src, tgt, w, nw, reg, weight_decay=1.0, *, pad_rows: int = 0,
     docstring). Defaults are the JAX solver's but for the CC cap
     (CC_ROUNDS; the CC loop ends on convergence).
 
+    `shard`: one shard of a sharded solve (the JAX `_solve_band_sharded`,
+    parallel/partition_shard.py), with row0, row1, n, psum and all_gather.
+    f and nw are then its rows [row0, row1) of the n, and (src, tgt, w) the
+    edges whose source is one of them. The labels and the region tables
+    stay whole on every shard; sums over rows are the shard's partial sums
+    joined by psum, and row vectors (the sides, CC labels) are rebuilt by
+    all_gather after each sweep. Without a shard the solve is the
+    single-device one.
+
     Returns (comp [n] int64: the least Morton position of each vertex's
     region, stats dict: iters, cc_rounds (in all), cc_rounds_max (of one CC
     call), cc_capped, energy, host_syncs)."""
     if accept not in ("global", "region"):
         raise ValueError(f"accept={accept!r}: 'global' or 'region'")
-    n, d = f.shape
+    n_loc, d = f.shape
+    n = n_loc if shard is None else shard.n
+    row0, rows, gather = _shard_rows(shard, n)
+    psum = _same if shard is None else shard.psum
     dev = f.device
     iota = torch.arange(n, device=dev)
-    parity = (iota % 2).bool()
-    by_src = _Segments(src, n, presorted=True)
+    parity = (iota[rows] % 2).bool()
+    by_src = _Segments(src - row0, n_loc, presorted=True)
     reads = 0
 
     def read(t):
@@ -198,18 +231,23 @@ def solve(f, src, tgt, w, nw, reg, weight_decay=1.0, *, pad_rows: int = 0,
         return bool(t)
 
     def energy_of(comp, mean):
-        fid = (nw * ((f - mean[comp]) ** 2).sum(1)).sum()
+        fid = (nw * ((f - mean[comp[rows]]) ** 2).sum(1)).sum()
         # every undirected edge appears twice (both directions)
         cross = torch.where(comp[src] != comp[tgt], w, 0.0).sum()
-        return fid + reg * 0.5 * cross
+        return psum(fid + reg * 0.5 * cross)
+
+    def segments(comp):
+        return _Segments(comp[rows], n,
+                         reduce=None if shard is None else shard.psum)
 
     def split_once(comp, by_comp, saturated, mean, it):
         steps_now = max(1, int(np.round(
             np.float32(flow_steps) * np.float32(weight_decay) ** np.float32(it)
             + np.float32(0.5))))
-        resid = f - mean[comp]
+        comp_loc = comp[rows]
+        resid = f - mean[comp_loc]
         cov = by_comp.sum((resid[:, :, None] * resid[:, None, :]).reshape(
-            n, d * d)).reshape(n, d, d)
+            n_loc, d * d)).reshape(n, d, d)
         if it == 0 and pad_rows:
             # the pad rows' residuals (0 - mean) in label 0, the only label
             cov[0] += pad_rows * torch.outer(mean[0], mean[0])
@@ -218,7 +256,8 @@ def solve(f, src, tgt, w, nw, reg, weight_decay=1.0, *, pad_rows: int = 0,
         for _ in range(power_iters):
             v = (cov * v[:, None, :]).sum(2)
             v = v * torch.rsqrt((v * v).sum(1, keepdim=True) + 1e-20)
-        b = ((resid * v[comp]).sum(1) > 0) & ~saturated[comp]
+        b = ((resid * v[comp_loc]).sum(1) > 0) & ~saturated[comp_loc]
+        b_all = gather(b)
         w_intra = torch.where(comp[src] == comp[tgt], w, 0.0)
         # steps past steps_now leave b as it was (the JAX step_on gate)
         for _ in range(min(steps_now, flow_steps)):
@@ -233,19 +272,21 @@ def solve(f, src, tgt, w, nw, reg, weight_decay=1.0, *, pad_rows: int = 0,
                              / torch.clamp(cp_, min=1e-12)[:, None], mean)
             hm = torch.where((cm_ > 0)[:, None], sides[:, d + 1:2 * d + 1]
                              / torch.clamp(cm_, min=1e-12)[:, None], mean)
-            hd_q = torch.cat([hp - hm, ((hp * hp).sum(1)
-                                        - (hm * hm).sum(1))[:, None]], 1)[comp]
+            hd = torch.cat([hp - hm, ((hp * hp).sum(1)
+                                      - (hm * hm).sum(1))[:, None]], 1)
+            hd_q = hd[comp_loc]
             delta_u = nw * (-2.0 * (f * hd_q[:, :d]).sum(1) + hd_q[:, d])
             for s in range(2 * icm_sweeps):
-                spin = 1.0 - 2.0 * b.to(f.dtype)
+                spin = 1.0 - 2.0 * b_all.to(f.dtype)
                 field = reg * by_src.sum(w_intra * spin[tgt])
                 # red/black: odd Morton positions on even sweeps
                 b = torch.where(parity == (s % 2 == 0),
                                 (delta_u + field) < 0, b)
-        return b & ~saturated[comp], w_intra
+                b_all = gather(b)
+        return b_all & ~saturated[comp], w_intra
 
     comp = torch.zeros(n, dtype=torch.int64, device=dev)
-    by_comp = _Segments(comp, n)
+    by_comp = segments(comp)
     saturated = torch.zeros(n, dtype=torch.bool, device=dev)
     energy = energy_of(comp, by_comp.mean(f, nw))
     it = ccr = ccr_max = capped = 0
@@ -256,8 +297,8 @@ def solve(f, src, tgt, w, nw, reg, weight_decay=1.0, *, pad_rows: int = 0,
         new_comp, rounds, cap = cc_labels(
             comp * 2 + b.to(torch.int64), src, tgt, w, cc_rounds=cc_rounds,
             cc_sweeps_per_round=cc_sweeps_per_round, cc_jumps=cc_jumps,
-            read=read)
-        by_new = _Segments(new_comp, n)
+            read=read, shard=shard)
+        by_new = segments(new_comp)
         ccr += rounds
         ccr_max = max(ccr_max, rounds)
         capped += int(cap)
@@ -267,8 +308,8 @@ def solve(f, src, tgt, w, nw, reg, weight_decay=1.0, *, pad_rows: int = 0,
             # (fidelity per node, newly cut edges intra-region), and labels
             # stay collision free (least positions of disjoint node sets)
             new_mean = by_new.mean(f, nw)
-            fo_node = nw * ((f - mean[comp]) ** 2).sum(1)
-            fn_node = nw * ((f - new_mean[new_comp]) ** 2).sum(1)
+            fo_node = nw * ((f - mean[comp[rows]]) ** 2).sum(1)
+            fn_node = nw * ((f - new_mean[new_comp[rows]]) ** 2).sum(1)
             cut_node = by_src.sum(
                 torch.where(new_comp[src] != new_comp[tgt], w_intra, 0.0))
             dfid, fo_reg, cut = by_comp.sum(
@@ -281,7 +322,7 @@ def solve(f, src, tgt, w, nw, reg, weight_decay=1.0, *, pad_rows: int = 0,
             improved = read(
                 e_drop < -stop_tol * torch.clamp(energy.abs(), min=1.0))
             comp = torch.where(acc_n, new_comp, comp)
-            by_comp = _Segments(comp, n)
+            by_comp = segments(comp)
             # accepted regions' children stay splittable; the rest saturate
             saturated = _seg_any(~acc_n, comp, n)
             energy = energy + e_drop

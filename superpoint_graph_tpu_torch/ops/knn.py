@@ -50,15 +50,22 @@ def sqdist(a, b):
     return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
 
 
-def _rerank(xyz, q_ids, cand, k: int):
+def _rerank(xyz, q_ids, cand, k: int, tie_ids=None):
     """The k nearest of the candidate ids `cand` [m, c] (n: no candidate)
     for the points q_ids [m] of xyz, by the exact distance, lower id first
-    on ties, the point itself excluded. Returns (ids [m, k] int64, squared
-    distances [m, k] f32; inf and id n where fewer than k candidates)."""
+    on ties, the point itself excluded. `tie_ids` [n]: break ties by
+    tie_ids[cand] instead (a slab of a cloud, its rows' ids in the cloud).
+    Returns (ids [m, k] int64, squared distances [m, k] f32; inf and id n
+    where fewer than k candidates)."""
     n = xyz.shape[0]
     # index order first so the stable sort breaks distance ties by the
     # lower index
-    cand, _ = torch.sort(cand, dim=1)
+    if tie_ids is None:
+        cand, _ = torch.sort(cand, dim=1)
+    else:
+        key = torch.where(cand < n, tie_ids[cand.clamp(max=n - 1)],
+                          torch.iinfo(torch.int64).max)
+        cand = torch.gather(cand, 1, torch.sort(key, dim=1).indices)
     exact = sqdist(xyz[q_ids][:, None, :], xyz[cand.clamp(max=n - 1)])
     exact = torch.where((cand == q_ids[:, None]) | (cand >= n), float("inf"),
                         exact)
@@ -162,13 +169,14 @@ def _level_windows(keys_s, pos_first, pos_last, dims):
 
 
 def _knn_cells_q(xyz, xs, cs, order, qpos, starts, spans, k: int,
-                 window: int, dy_dim: int):
+                 window: int, dy_dim: int, tie_ids=None):
     """kNN of the query blocks qpos [mb, bq] (sorted positions) among their
     blocks' windows of `window` rows a cell column (the JAX
     `_knn_cells_q_concat` / `_knn_cells_q_device`, exact): a candidate
     counts for a query when it lies in the column's cell (qx + dx, qy + dy)
     and within one cell of qz, inside its window, and is not the query.
-    Returns (ids [mb * bq, k] original ids, exact squared distances)."""
+    `tie_ids` goes to `_rerank`. Returns (ids [mb * bq, k] original ids,
+    exact squared distances)."""
     mb, bq = qpos.shape
     dev = xyz.device
     w = torch.arange(window, device=dev)
@@ -198,7 +206,8 @@ def _knn_cells_q(xyz, xs, cs, order, qpos, starts, spans, k: int,
     n = xyz.shape[0]
     cand = torch.where(torch.isfinite(top), order[torch.gather(
         cpos[:, None, :].expand(-1, bq, -1), 2, sel)], n)
-    return _rerank(xyz, order[qpos.reshape(-1)], cand.reshape(mb * bq, -1), k)
+    return _rerank(xyz, order[qpos.reshape(-1)], cand.reshape(mb * bq, -1), k,
+                   tie_ids)
 
 
 def _bucket_sizes(cap: int):

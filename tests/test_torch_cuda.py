@@ -233,6 +233,94 @@ def test_train_step_on_card_matches_cpu(dev):
     card_vs_cpu(fresh, batch, bn_fed_biases(model))
 
 
+# ---------------------------------------------------------------- parallel
+def test_sharded_solve_on_card_matches_single_card(dev):
+    """cutpursuit_band_sharded on two shards of one card against the
+    single-card cutpursuit_band with the same pad rows, on a 30,000-point
+    room and its k = 10 graph: label agreement above 0.999, component
+    counts within 2 (the sharded sums round in another order); a second
+    sharded run equal bit for bit."""
+    from superpoint_graph_tpu_torch.data.synthetic import synthetic_room
+    from superpoint_graph_tpu_torch.ops.cutpursuit_band import cutpursuit_band
+    from superpoint_graph_tpu_torch.ops.knn import knn
+    from superpoint_graph_tpu_torch.parallel import partition_shard as ps
+    from superpoint_graph_tpu_torch.parallel.mesh import make_mesh
+
+    xyz, rgb, _, _ = synthetic_room(np.random.RandomState(0), 30_000)
+    idx, d2 = knn(torch.from_numpy(xyz).to(dev), 10)
+    src = np.repeat(np.arange(len(xyz)), 10)
+    tgt = idx.reshape(-1).cpu().numpy()
+    dist = np.sqrt(d2.reshape(-1).cpu().numpy())
+    w = (1.0 / (1.0 + dist / dist.mean())).astype(np.float32)
+    f = np.c_[xyz, rgb / 255.0].astype(np.float32)
+    comps_1, ic_1 = cutpursuit_band(f, src, tgt, w, 0.1, xyz=xyz, device=dev,
+                                    pad_rows=ps.sharded_pad_rows(len(xyz), 2))
+    mesh = make_mesh(devices=[dev, dev])
+    runs = [ps.cutpursuit_band_sharded(f, src, tgt, w, 0.1, mesh, xyz=xyz)
+            for _ in range(2)]
+    assert (runs[0][1] == ic_1).mean() > 0.999
+    assert abs(len(runs[0][0]) - len(comps_1)) <= 2
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
+
+
+def test_dp_step_nccl_world_one_equals_train_step(dev):
+    """parallel/dp.py's step in an NCCL group of one rank on the card
+    equals Trainer.train_step from the same weights and generator seed,
+    bit for bit (a mean over one rank is the identity): losses, parameters
+    and running statistics over 3 steps."""
+    import os
+    import socket
+    import warnings
+
+    import torch.distributed as dist
+
+    from superpoint_graph_tpu_torch.learn.train import Trainer
+    from superpoint_graph_tpu_torch.models.spgmodel import SpgBatch, SpgModel
+    from superpoint_graph_tpu_torch.parallel import multihost
+    from superpoint_graph_tpu_torch.parallel.dp import make_dp_train_step
+
+    rng = np.random.RandomState(1)
+    n_sp, n_e = 64, 256
+    batch = SpgBatch(**{k: torch.as_tensor(v, device=dev) for k, v in {
+        "clouds": rng.randn(n_sp, 32, 14).astype(np.float32),
+        "clouds_global": rng.rand(n_sp, 1).astype(np.float32),
+        "cloud_mask": np.ones(n_sp, bool), "node_mask": np.ones(n_sp, bool),
+        "targets": rng.randint(0, 13, n_sp),
+        "target_size": np.zeros((n_sp, 14), np.int64),
+        "src": rng.randint(0, n_sp, n_e), "tgt": rng.randint(0, n_sp, n_e),
+        "edge_mask": np.ones(n_e, bool),
+        "edge_feats": rng.randn(n_e, 13).astype(np.float32)}.items()})
+    model = SpgModel(13, ptn_nfeat=14, ptn_nfeat_stn=14)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+
+    def fresh():
+        m = SpgModel(13, ptn_nfeat=14, ptn_nfeat_stn=14)
+        m.load_state_dict(model.state_dict())
+        return Trainer(m, device=dev, seed=3)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    # one host: NCCL's bootstrap on the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    multihost.initialize(f"tcp://127.0.0.1:{port}", 1, 0, device=dev)
+    # index_add_'s float atomics would add in no fixed order
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            a, b = fresh(), fresh()
+            step = make_dp_train_step(a)
+            for _ in range(3):
+                assert torch.equal(step(batch)[0], b.train_step(batch)[0])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    for (k, v), w in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        assert torch.equal(v, w), k
+
+
 # ---------------------------------------------------------------- SSP
 def _ssp_batch(rng, n=4000, k=5, k_local=20):
     """A collated SSP batch (host arrays): a cloud of n points in 8

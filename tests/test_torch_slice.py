@@ -359,6 +359,10 @@ def _entry_point_calls():
     from superpoint_graph_tpu_torch.ssp.embed import SspModelConfig, SspTrainer
     from superpoint_graph_tpu_torch.ssp.losses import (SspLossConfig,
                                                        compute_partition)
+    from superpoint_graph_tpu_torch.parallel import (multihost,
+                                                     partition_big_shard,
+                                                     partition_shard)
+    from superpoint_graph_tpu_torch.parallel.mesh import make_mesh
 
     xyz = np.random.RandomState(0).rand(50, 3).astype(np.float32)
     edges = np.arange(49), np.arange(1, 50)
@@ -413,6 +417,17 @@ def _entry_point_calls():
         "write_submission": lambda: write_semantic3d.write_submission(
             "scan.labels", "scan.txt", xyz, [np.arange(50)], [0], 1000),
         "write_semantic3d.main": lambda: write_semantic3d.main([]),
+        "make_mesh": make_mesh,
+        "partition_cloud_sharded": lambda: (
+            partition_shard.partition_cloud_sharded(xyz, None,
+                                                    PartitionConfig())),
+        "partition_big_sharded": lambda: (
+            partition_big_shard.partition_big_sharded(xyz, None,
+                                                      PartitionConfig())),
+        "sharded_knn_geof": lambda: partition_shard.sharded_knn_geof(xyz, 2,
+                                                                     4),
+        "multihost.initialize": lambda: multihost.initialize(
+            "tcp://127.0.0.1:1", 1, 0),
     }
 
 
@@ -427,7 +442,9 @@ def _entry_point_calls():
     "ssp_preprocess.main", "ssp_train.main", "ssp_generate.main",
     "ssp_evaluate.main", "partition_file[vkitti]",
     "partition_file[custom_dataset]", "preprocess_file[vkitti]",
-    "write_submission", "write_semantic3d.main"])
+    "write_submission", "write_semantic3d.main", "make_mesh",
+    "partition_cloud_sharded", "partition_big_sharded", "sharded_knn_geof",
+    "multihost.initialize"])
 def test_entry_points_default_to_card(name):
     """Called without `device`, every entry point asks for the card, and
     raises where there is none rather than run on the CPU."""
@@ -474,7 +491,13 @@ def test_port_imports_no_jax():
         "        'superpoint_graph_tpu_torch.cli.write_semantic3d',\n"
         "        'superpoint_graph_tpu_torch.utils.plyio',\n"
         "        'superpoint_graph_tpu_torch.data.provider',\n"
-        "        'superpoint_graph_tpu_torch.data.synthetic'} <= set(names), names\n"
+        "        'superpoint_graph_tpu_torch.data.synthetic',\n"
+        "        'superpoint_graph_tpu_torch.parallel.mesh',\n"
+        "        'superpoint_graph_tpu_torch.parallel.multihost',\n"
+        "        'superpoint_graph_tpu_torch.parallel.dp',\n"
+        "        'superpoint_graph_tpu_torch.parallel.partition_shard',\n"
+        "        'superpoint_graph_tpu_torch.parallel.partition_big_shard'}"
+        " <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "

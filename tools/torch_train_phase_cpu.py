@@ -41,8 +41,8 @@ def main() -> int:
                                      np.random.RandomState(smoke.SEED), points)
         room = partition.partition_file(
             str(raw), partition.parse_args(["--spg_adjacency", "knn"]), "cpu")
-        _, _, out = smoke.train_phase(torch.device("cpu"), tmp + "/train",
-                                      room, points)
+        _, _, out, _ = smoke.train_phase(torch.device("cpu"),
+                                         tmp + "/train", room, points)
     print(json.dumps(dict(out, points=points)))
     return 0
 
