@@ -5,7 +5,10 @@ one NVIDIA GPU.
 1. Header: torch / CUDA / nvcc versions, the card's name and power limit,
    which optional file-I/O packages are present.
 2. Build: every CUDA kernel of the serving paths, from this checkout, with
-   ptxas's registers, shared memory and spills for each.
+   ptxas's registers, shared memory and spills for each; and the host
+   library (csrc/spgt_native.cpp, g++), which the merge rounds,
+   relabel_connected, the cutoff fuse and the prune above
+   PRUNE_DEVICE_MAX rows call.
 3. Quick kernel check: nn1 against its plain torch version on the card,
    the room's 1,000,000 points as db and 65,536 queries.
 4. Adversarial nn1 check (ops/nn1_cases.py): clouds at 1e3 m, near-ties
@@ -30,7 +33,12 @@ one NVIDIA GPU.
    Both solvers' seconds, energy, component count and OOA; the run fails
    unless the device solver is within QUALITY_BOUNDS of the exact one,
    every label is one connected piece of the graph and no CC call stopped
-   at its cap.
+   at its cap. Then the dense device solver (ops/cutpursuit_dense.py, the
+   JAX package's cutpursuit_tpu below 16,384 vertices) on a crop of the
+   room's voxels (DENSE_CROP_ROWS of least x) with their kNN edges, on the
+   card, on the CPU and against the exact solver on the same crop: seconds,
+   energy, components; the card's energy must lie within
+   DENSE_ENERGY_RTOL of the CPU's.
 8. Run to run: the room read again, pruned twice, its features built twice
    and the device solve run twice; each stage's output must be
    bit-identical (voxels, kNN, geof, the solver's labels, in_component, and
@@ -158,7 +166,27 @@ one NVIDIA GPU.
    global_edge_scaler within 1e-5 of a float64 fit (its distance from
    EdgeFeatScaler.fit printed); both steps/s and the all-reduce's share of
    a step (CUDA events).
-17. Timing at the nn1 shapes, with CUDA events: the kernel (mean of 3
+17. The JAX package's Semantic3D chain at its own scale
+   (tools/torch_semantic3d_headline.py::run_chain at the JAX tool's
+   defaults): 1e8 raw points of `station_chunk` drawn in chunks of 5e6
+   rows, each pruned at 0.1 m by the host library, the concatenation
+   pruned once more, then partition_cloud_big (k 45/10, reg 0.8, kNN
+   adjacency, host_outputs=False) cold and warm. Printed: voxels after the
+   chunks and after the global prune, windows, superpoints, superedges,
+   the drawing, prune and partition seconds with the stage split
+   (features, knn_info, cp_info with relabel_connected and the heal, spg),
+   raw Mpts/s, peak device memory, the host library's calls, and the device
+   prune's seconds on the global re-prune's rows beside the library's.
+   Checks: (a) the cold and warm partitions bit-identical; (b) no label
+   disconnected in the kNN adjacency, no CC call at its cap; (c) the kNN
+   table equal to a direct-form brute force on 65,536 sampled rows; (d)
+   the library's prune equal to prune_plain on the first chunk (voxels,
+   order, histograms; xyz within 4 ulp); (e) the library's
+   relabel_connected equal to relabel_connected_plain on the scan phase's
+   station (cutoff 0); (f) the library's greedy matching equal to
+   greedy_matching_plain on the heal's own candidates (each plain version
+   timed beside the library).
+18. Timing at the nn1 shapes, with CUDA events: the kernel (mean of 3
    calls after a warm-up), the plain version (one call on the queries it
    was checked on: all of them, or the sampled rows), one PyTorch call of
    the same function (torch.cdist in its matrix-product mode + argmin, in
@@ -166,11 +194,12 @@ one NVIDIA GPU.
    flops a pair, the 3 FMAs of the expanded form, at 67 TFLOP/s, or the
    bytes at 3.35 TB/s if larger). The direct-mode torch.cdist yardstick
    (~21 minutes at 1M x 1M) lives in tools/nn1_cdist_direct.py.
-18. One JSON line with the kernel table (top-level numbers at the read
+19. One JSON line with the kernel table (top-level numbers at the read
    shape, 1M x 1M; every shape under "shapes"; launches of each path,
    the submission writer's and the parallel phase's included) and the
-   training, SSP, custom, vKITTI, output and parallel phases' numbers, the
-   card line, and last
+   training, SSP, custom, vKITTI, output, parallel, Semantic3D chain
+   ("headline") and dense-solver ("dense_crop") phases' numbers, the card
+   line, and last
    {"ok": true, "device": {...}}.
 
 Exits non-zero on any failure, when no CUDA device is visible, or when run
@@ -229,6 +258,9 @@ QUALITY_BOUNDS = {"energy_ratio": 1.30, "n_comp_ratio": (0.25, 1.5),
 N_SCAN = 8_000_000
 MIN_SCAN_VOXELS = 1_500_000
 SCAN_BOUNDS = {"energy_ratio": 1.10, "ooa_drop": 1.0}
+# the dense device solver's crop of the room (below its band threshold,
+# 16,384 vertices), and how far the card's energy may lie from the CPU's
+DENSE_CROP_ROWS, DENSE_ENERGY_RTOL = 12_000, 1e-4
 
 
 def cuda_ms(fn, reps):
@@ -378,6 +410,62 @@ def quality_phase(r, cfg, solve_stats):
                              f"call stopped at its cap: {device}, "
                              f"{solve_stats}")
     return exact
+
+
+def dense_crop_phase(part, cfg, rows=DENSE_CROP_ROWS):
+    """The dense device cut pursuit (ops/cutpursuit_dense.py, the JAX
+    package's cutpursuit_tpu below its band threshold) on a crop of the
+    room's voxels (the `rows` of least x) with the kNN edges inside it: on
+    the card and on the CPU, and the host exact solver on the same crop.
+    Raises unless the card's energy is within DENSE_ENERGY_RTOL of the
+    CPU's. Returns the numbers printed."""
+    import torch
+
+    from superpoint_graph_tpu_torch.ops.cutpursuit import _energy, cutpursuit
+    from superpoint_graph_tpu_torch.ops.cutpursuit_dense import (
+        cutpursuit_dense)
+    from superpoint_graph_tpu_torch.pipeline import (
+        assemble_partition_features, edge_weights)
+
+    crop = np.sort(np.argsort(part.xyz[:, 0], kind="stable")[:rows])
+    local = np.full(len(part.xyz), -1, np.int64)
+    local[crop] = np.arange(len(crop))
+    src = local[part.graph_nn["source"].astype(np.int64)]
+    tgt = local[part.graph_nn["target"].astype(np.int64)]
+    keep = (src >= 0) & (tgt >= 0)
+    src, tgt = src[keep], tgt[keep]
+    w = edge_weights(part.graph_nn["distances"], cfg.lambda_edge_weight)[keep]
+    feats = assemble_partition_features(part.geof, part.rgb, cfg)[crop]
+
+    def run(name, fn):
+        if name == "card":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ic = fn()
+        if name == "card":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        e, _ = _energy(feats.astype(np.float64), np.ones(len(crop)),
+                       np.asarray(ic, np.int64), src, tgt,
+                       w.astype(np.float64), cfg.reg_strength)
+        return {"seconds": seconds, "energy": e, "n_comp": int(ic.max()) + 1}
+
+    out = {"rows": len(crop), "edges": len(src)}
+    for name, dev in (("card", torch.device("cuda", 0)), ("cpu", "cpu")):
+        out[name] = run(name, lambda: cutpursuit_dense(
+            feats, src, tgt, w, cfg.reg_strength, xyz=part.xyz[crop],
+            device=dev))
+    out["exact"] = run("exact", lambda: cutpursuit(feats, src, tgt, w,
+                                                   cfg.reg_strength))
+    out["card_vs_cpu_energy"] = abs(out["card"]["energy"] / out["cpu"]["energy"]
+                                    - 1.0)
+    out["card_vs_exact_energy"] = out["card"]["energy"] / out["exact"]["energy"]
+    print(f"[quality] dense solver on a crop of the room: {json.dumps(out)}",
+          flush=True)
+    if not out["card_vs_cpu_energy"] <= DENSE_ENERGY_RTOL:
+        raise AssertionError("the dense solver's energy on the card is not "
+                             f"within {DENSE_ENERGY_RTOL} of the CPU's: {out}")
+    return out
 
 
 def same_component_share(a, b) -> float:
@@ -2069,6 +2157,176 @@ def parallel_phase(dev, tmp, room, cfg, exact, scan_part, scan_cfg, ctx):
     return launches, out
 
 
+# phase 17: the JAX package's Semantic3D chain at its own scale
+# (tools/torch_semantic3d_headline.py at its defaults: 1e8 raw points,
+# chunks of 5e6 rows, 0.1 m, k 45/10, reg 0.8)
+HEADLINE_TOOL = ROOT / "tools" / "torch_semantic3d_headline.py"
+
+
+def headline_phase(dev, scan_part):
+    """The 1e8-point Semantic3D chain on the card, cold then warm
+    (`run_chain`), with checks (a)-(f) of chip_smoke.py's docstring;
+    `scan_part` is the scan phase's partition, for (e). Returns the numbers
+    printed, for the JSON line."""
+    import torch
+
+    from superpoint_graph_tpu_torch import native
+    from superpoint_graph_tpu_torch.data.synthetic import station_chunk
+    from superpoint_graph_tpu_torch.learn.metrics import disconnected_labels
+    from superpoint_graph_tpu_torch.ops import voxel
+    from superpoint_graph_tpu_torch.ops.components import (
+        relabel_connected, relabel_connected_plain)
+    from superpoint_graph_tpu_torch.ops.cutpursuit import greedy_matching_plain
+    from superpoint_graph_tpu_torch.ops.knn import knn_bigcloud
+
+    spec = importlib.util.spec_from_file_location("torch_semantic3d_headline",
+                                                  HEADLINE_TOOL)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    t_phase = time.perf_counter()
+    calls0 = {k: getattr(native, k).calls
+              for k in ("prune", "connected_comp", "greedy_matching")}
+    # the matchings of the runs' merge rounds, for (f): the wrapper keeps
+    # each call's inputs and calls the library
+    matched = []
+    library_matching = native.greedy_matching
+
+    def recording(a, b, n_comp):
+        matched.append((np.asarray(a), np.asarray(b), int(n_comp)))
+        return library_matching(a, b, n_comp)
+
+    native.greedy_matching = recording
+    try:
+        split, extra = tool.run_chain(warm_repeat=True, device=dev)
+    finally:
+        native.greedy_matching = library_matching
+    calls = {k: getattr(native, k).calls - v for k, v in calls0.items()}
+    cold, warm = extra["results"]
+    xyz = extra["xyz"]
+    n = len(xyz)
+    show = {k: v for k, v in split.items() if not k.startswith("times")}
+    print(f"[headline] {json.dumps(show)}")
+    for name in ("cold", "warm"):
+        times = split[f"times_{name}"]
+        print(f"[headline] {name} stages: " + json.dumps(
+            {k: v for k, v in times.items() if k != "cp_info"}))
+        print(f"[headline] {name} chunked cut pursuit: "
+              f"{json.dumps(times['cp_info'])}")
+    print(f"[headline] host library calls of the chain: {json.dumps(calls)}",
+          flush=True)
+    checks = {}
+    # (a) cold and warm partitions bit-identical
+    checks["a_cold_warm_identical"] = bool(
+        np.array_equal(cold.in_component, warm.in_component)
+        and all(np.array_equal(np.asarray(cold.graph_sp[k]),
+                               np.asarray(warm.graph_sp[k]))
+                for k in cold.graph_sp))
+    # (c) the kNN table against a direct-form brute force, then (b) every
+    # label connected in the kNN adjacency, no capped CC call
+    cfg = dict(k_geof=45, k_adj=10)
+    x_dev = torch.as_tensor(xyz, device=dev)
+    t0 = time.perf_counter()
+    bi, bd2, _ = knn_bigcloud(x_dev, cfg["k_geof"])
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = torch.randperm(n, device=dev, generator=g)[:N_CHECK]
+    want_i, want_d = brute_knn_rows(x_dev, rows, cfg["k_geof"])
+    checks["c_knn_equal_to_brute_force"] = bool(
+        torch.equal(bi[rows], want_i) and torch.equal(bd2[rows], want_d))
+    knn_s = time.perf_counter() - t0
+    tgt = bi[:, :cfg["k_adj"]].reshape(-1).cpu().numpy().astype(np.int64)
+    del bi, bd2, want_i, want_d
+    src = np.repeat(np.arange(n, dtype=np.int64), cfg["k_adj"])
+    t0 = time.perf_counter()
+    n_disc = disconnected_labels(cold.in_component, src, tgt)
+    checks["b_connected_uncapped"] = bool(
+        n_disc == 0 and cold.times["cp_info"]["cc_capped"] == 0)
+    disc_s = time.perf_counter() - t0
+    del src, tgt
+    # the device prune of the global re-prune's rows, beside the library's
+    rows_ac = extra["rows_after_chunks"]
+    dev_prune = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = voxel.voxel_prune(
+            torch.as_tensor(rows_ac, device=dev), split["voxel_width"],
+            torch.zeros((len(rows_ac), 3), dtype=torch.uint8, device=dev),
+            None, None, 0, 0)
+        dev_xyz = out["xyz"].cpu().numpy()
+        dev_prune.append(time.perf_counter() - t0)
+        del out
+    prune_cmp = {
+        "rows": len(rows_ac), "native_s": split["global_prune_seconds"],
+        "device_s": dev_prune, "device_voxels": len(dev_xyz),
+        "device_equal_to_native": bool(np.array_equal(dev_xyz, xyz)),
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    del dev_xyz, rows_ac
+    # (d) the library's prune against prune_plain on the first chunk
+    chunk = station_chunk(np.random.default_rng(0), tool.VER_BATCH)
+    t0 = time.perf_counter()
+    got = native.prune(chunk, split["voxel_width"], None, None, None, 0, 0)
+    t1 = time.perf_counter()
+    want = voxel.prune_plain(chunk, split["voxel_width"], None, None, None,
+                             0, 0)
+    t2 = time.perf_counter()
+    ulp = np.abs(got[0].view(np.int32).astype(np.int64)
+                 - want[0].view(np.int32).astype(np.int64))
+    checks["d_prune_equal_to_plain"] = bool(
+        len(got[0]) == len(want[0]) and ulp.max() <= 4
+        and all(np.array_equal(a, b) for a, b in zip(got[1:], want[1:])))
+    prune_chunk = {"rows": len(chunk), "voxels": len(got[0]),
+                   "max_ulp": int(ulp.max()), "native_s": t1 - t0,
+                   "plain_s": t2 - t1}
+    # (e) the library's relabel_connected against the plain one on the scan
+    # phase's station, cutoff 0
+    s_src = scan_part.graph_nn["source"].astype(np.int64)
+    s_tgt = scan_part.graph_nn["target"].astype(np.int64)
+    s_n = len(scan_part.xyz)
+    t0 = time.perf_counter()
+    _, ic_lib = relabel_connected(s_n, s_src, s_tgt, scan_part.in_component)
+    t1 = time.perf_counter()
+    _, ic_plain = relabel_connected_plain(s_n, s_src, s_tgt,
+                                          scan_part.in_component)
+    t2 = time.perf_counter()
+    checks["e_relabel_equal_to_plain"] = bool(np.array_equal(ic_lib,
+                                                             ic_plain))
+    relabel = {"voxels": s_n, "edges": len(s_src), "native_s": t1 - t0,
+               "plain_s": t2 - t1}
+    # (f) the library's greedy matching against the plain one on the heal's
+    # own candidates (the merge rounds over the whole cloud's regions)
+    heal_in = cold.times["cp_info"]["heal_regions_in"]
+    heal = [m for m in matched if m[2] == heal_in]
+    checks["f_heal_matching_equal_to_plain"] = bool(heal) and all(
+        np.array_equal(library_matching(a, b, c), greedy_matching_plain(a, b, c))
+        for a, b, c in heal)
+    a, b, c = max(heal, key=lambda m: len(m[0])) if heal else ((), (), 0)
+    t0 = time.perf_counter()
+    library_matching(a, b, c)
+    t1 = time.perf_counter()
+    greedy_matching_plain(np.asarray(a), np.asarray(b), c)
+    matching = {"heal_calls": len(heal), "candidates": len(a),
+                "native_s": t1 - t0, "plain_s": time.perf_counter() - t1}
+    out = {"split": show, "checks": checks, "knn_check_s": knn_s,
+           "disconnected_check_s": disc_s, "device_prune": prune_cmp,
+           "prune_chunk": prune_chunk, "relabel": relabel,
+           "matching": matching, "library_calls": calls,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[headline] device prune of the global re-prune's rows: "
+          f"{json.dumps(prune_cmp)}")
+    print(f"[headline] host library against plain: prune {json.dumps(prune_chunk)}"
+          f", relabel_connected {json.dumps(relabel)}, greedy matching "
+          f"{json.dumps(matching)}")
+    print(f"[headline] checks {json.dumps(checks)}; kNN check {knn_s:.1f} s, "
+          f"connectivity check {disc_s:.1f} s; phase {out['phase_s']:.1f} s",
+          flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"the Semantic3D chain failed a check: {checks}")
+    if min(calls.values()) == 0:
+        raise AssertionError(f"the chain skipped the host library: {calls}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "superpoint_graph_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2108,9 +2366,12 @@ def main() -> int:
         f"{m}={'yes' if importlib.util.find_spec(m) else 'no'}"
         for m in ("h5py", "pandas", "sklearn")), flush=True)
 
-    # ---- 2. build
+    # ---- 2. build: the kernel, and the host library (g++)
     lib, build_s, ptxas = _build.build("nn1")
     print(f"[build] nn1: {lib.relative_to(ROOT)} in {build_s:.2f} s")
+    host_lib, host_s = _build.build_host("spgt_native")
+    print(f"[build] host library: {host_lib.relative_to(ROOT)} in "
+          f"{host_s:.2f} s ({_build.gxx_path()})")
     for line in ptxas.splitlines():
         print(f"[build] ptxas: {line}")
     sys.stdout.flush()
@@ -2210,6 +2471,7 @@ def main() -> int:
         raise AssertionError("model logits on the card disagree with the CPU")
 
     exact = quality_phase(r, cfg, solve_stats)
+    dense = dense_crop_phase(r.partition, cfg)
     run_to_run_phase(r, cfg, raw, dev)
 
     # ---- 9. the training path; only its own nn1 launches are counted
@@ -2252,9 +2514,14 @@ def main() -> int:
         parallel_launches, parallel = parallel_phase(
             dev, tmp, r.partition, cfg, exact, scan_part, SEMA3D_CONFIG,
             train_ctx)
-    del scan_part, train_ctx
+    del train_ctx
 
-    # ---- 17. nn1 at its shapes: kernel, plain (on plain_rows sampled
+    # ---- 17. the JAX package's Semantic3D chain at 1e8 raw points (no
+    # kernel: it reads no file and spreads no labels)
+    headline = headline_phase(dev, scan_part)
+    del scan_part
+
+    # ---- 18. nn1 at its shapes: kernel, plain (on plain_rows sampled
     # queries where given), library, bound
     shapes = []
     for (db, q, check, name) in (
@@ -2273,7 +2540,7 @@ def main() -> int:
             "splits": nn1_plan(len(q), len(db))[0]})
         print(f"[time] nn1 {json.dumps(shapes[-1])}", flush=True)
 
-    # ---- 18. result lines; the top-level numbers are the read shape's
+    # ---- 19. result lines; the top-level numbers are the read shape's
     # (1M x 1M, the largest launch of the room path)
     read = shapes[0]
     kernels = [{
@@ -2294,7 +2561,8 @@ def main() -> int:
     }]
     print(json.dumps({"kernels": kernels, "train": train, "ssp": ssp,
                       "custom": custom, "vkitti": vkitti,
-                      "parallel": parallel,
+                      "parallel": parallel, "headline": headline,
+                      "dense_crop": dense,
                       "outputs": {"submission": submission,
                                   "visualize": visualize}}))
     print(f"[card] {smi}")

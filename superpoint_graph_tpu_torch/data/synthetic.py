@@ -5,7 +5,11 @@ and LAS files.
 `synthetic_room` is the port's copy of the JAX package's numpy generator
 (superpoint_graph_tpu/data/synthetic.py:16-103), with the same behaviour:
 the same seed gives the same arrays (tests/test_torch_slice.py holds the two
-together). `synthetic_street` and `write_las` have no JAX counterpart.
+together). `station_chunk` is the port's copy of the JAX package's
+Semantic3D station generator (tools/semantic3d_headline.py:31-89): the same
+`default_rng` state gives the same float32 points
+(tests/test_torch_headline.py). `synthetic_street` and `write_las` have no
+JAX counterpart.
 """
 from __future__ import annotations
 
@@ -187,6 +191,55 @@ def write_semantic3d_scan(path: Path, n_points: int, seed: int = 0):
     labels_path = path.with_suffix(".labels")
     _write_rows(labels_path, [(cls, 1, 0)])
     return labels_path, cls
+
+
+STATION_SIDE = 220.0  # metres: a large outdoor station's footprint
+
+
+def station_chunk(rg: np.random.Generator, n: int) -> np.ndarray:
+    """One chunk of n points of a synthetic outdoor station, [n, 3] f32:
+    55% ground, 35% the walls of 40 axis-aligned buildings, 10% compact
+    clutter blobs (cars, bushes, poles). Returns are surface-dominated like
+    real LiDAR, so pruning at 0.1 m keeps ~1/8 of a 1e8-point station as
+    Semantic3D's stations keep at 0.05 m. The buildings and blob centres are
+    the same in every chunk; every draw is a float32 PCG draw of `rg`."""
+    f1 = np.float32
+    n_ground = int(n * 0.55)
+    n_wall = int(n * 0.35)
+    n_scatter = n - n_ground - n_wall
+    g = np.empty((n_ground, 3), np.float32)
+    g[:, 0] = rg.random(n_ground, dtype=np.float32) * f1(STATION_SIDE)
+    g[:, 1] = rg.random(n_ground, dtype=np.float32) * f1(STATION_SIDE)
+    g[:, 2] = f1(0.05) * np.sin(g[:, 0] * f1(0.13)) + f1(
+        0.02) * rg.standard_normal(n_ground, dtype=np.float32)
+
+    brs = np.random.RandomState(12345)
+    bx = (brs.rand(40) * (STATION_SIDE - 30) + 5).astype(np.float32)
+    by = (brs.rand(40) * (STATION_SIDE - 30) + 5).astype(np.float32)
+    bw = (brs.rand(40) * 18 + 6).astype(np.float32)
+    bd = (brs.rand(40) * 18 + 6).astype(np.float32)
+    bh = (brs.rand(40) * 12 + 4).astype(np.float32)
+    bid = rg.integers(0, 40, n_wall)
+    side = rg.integers(0, 4, n_wall, dtype=np.int8)
+    t = rg.random(n_wall, dtype=np.float32)
+    z = rg.random(n_wall, dtype=np.float32) * bh[bid]
+    wx = np.where(side < 2, bx[bid] + t * bw[bid],
+                  np.where(side == 2, bx[bid], bx[bid] + bw[bid]))
+    wy = np.where(side < 2, np.where(side == 0, by[bid], by[bid] + bd[bid]),
+                  by[bid] + t * bd[bid])
+    w = np.stack([wx, wy, z], axis=1)
+    w += f1(0.01) * rg.standard_normal((n_wall, 3), dtype=np.float32)
+
+    crs = np.random.RandomState(777)
+    n_blobs = 3000
+    cx = crs.rand(n_blobs, 3).astype(np.float32) * np.array(
+        [STATION_SIDE, STATION_SIDE, 0.0], np.float32)
+    cr = (crs.rand(n_blobs) * 0.8 + 0.2).astype(np.float32)
+    bidx = rg.integers(0, n_blobs, n_scatter)
+    s = cx[bidx] + rg.standard_normal(
+        (n_scatter, 3), dtype=np.float32) * (cr[bidx][:, None] * f1(0.35))
+    s[:, 2] = np.abs(s[:, 2])
+    return np.concatenate([g, w, s])
 
 
 def _fixed_width(a: np.ndarray, int_digits: int, frac_digits: int):

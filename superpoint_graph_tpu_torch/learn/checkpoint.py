@@ -7,6 +7,8 @@ port's own: `torch.save` of {model, optimizer, step} (state dicts), read
 back with weights_only=True. `read_checkpoint_args` reads the header of a
 file of either package; resume rebuilds the model from the checkpoint's own
 args (cli/train.py), so architecture flags cannot drift.
+`load_reference_checkpoint` reads the reference implementation's
+`model.pth.tar` (the JAX package's learn/convert_torch.py counterpart).
 """
 from __future__ import annotations
 
@@ -63,3 +65,35 @@ def read_checkpoint_args(path: str) -> dict:
     """The args header alone (to rebuild the model before loading)."""
     with open(path, "rb") as f:
         return _read_header(f)["args"]
+
+
+def load_reference_checkpoint(path: str, map_location="cpu"):
+    """Read a checkpoint of the reference implementation (loicland's
+    `model.pth.tar`: a torch.save of {epoch, args, state_dict, optimizer,
+    scaler}, main.py:342-346) and return (args, SpgModel) with its weights.
+    The port's modules carry the reference's state-dict names, so the state
+    dict loads as it is. The model is built from the checkpoint's own args
+    (main.py:398), as the JAX package's
+    superpoint_graph_tpu/learn/convert_torch.py::load_reference_checkpoint
+    does: n_classes from args.inv_class_map (13 when absent), fnet_widths
+    as args gives them; the PointNet's input width, which the flax model
+    infers from its input, from the state dict's first PointNet layer.
+    The file is a pickle (it holds an argparse.Namespace), so read only
+    checkpoints of a source you trust."""
+    from ..models.spgmodel import SpgModel
+
+    ckpt = torch.load(path, map_location=map_location, weights_only=False)
+    args, sd = ckpt["args"], ckpt["state_dict"]
+    model = SpgModel(
+        n_classes=len(getattr(args, "inv_class_map", {})) or 13,
+        model_config=args.model_config,
+        ptn_widths=tuple(map(tuple, args.ptn_widths)),
+        ptn_widths_stn=tuple(map(tuple, args.ptn_widths_stn)),
+        ptn_nfeat=int(sd["ptn.convs.0.weight"].shape[1]),
+        ptn_nfeat_stn=int(args.ptn_nfeat_stn),
+        ptn_prelast_do=float(args.ptn_prelast_do),
+        fnet_widths=tuple(args.fnet_widths),
+        fnet_llbias=bool(args.fnet_llbias),
+        fnet_bnidx=int(args.fnet_bnidx))
+    model.load_state_dict(sd)
+    return args, model

@@ -1,15 +1,26 @@
 """Connected components over active-edge subgraphs, with small-component
-fusing — host numpy/scipy.
+fusing, on the host.
 
 Carried over unchanged in behaviour from the host half of
 superpoint_graph_tpu/ops/components.py (`group_components`,
 `connected_components`, `_fuse_small`, `relabel_connected`), whose module
 imports jax. Reference: `libply_c.connected_comp`
 (connected_components.cpp:17-110).
+
+`relabel_connected` runs the host library's union-find
+(`native.connected_comp`), as the JAX version does whenever its library
+builds; `connected_components` is the JAX package's numpy/scipy op, which
+both packages call elsewhere (the exact solver, the band solver's cutoff,
+SSP). The two agree at cutoff 0; above it the library fuses in rounds that
+renumber the components between them, `_fuse_small` without renumbering, so
+ties between equal-sized neighbours can part (ROADMAP queue 3).
+`relabel_connected_plain` is the scipy path, for the tests.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 
 def _cc_labels(n_ver: int, src: np.ndarray, tgt: np.ndarray) -> np.ndarray:
@@ -66,12 +77,23 @@ def connected_components(n_ver: int, source: np.ndarray, target: np.ndarray,
 def relabel_connected(n_ver: int, source: np.ndarray, target: np.ndarray,
                       in_component: np.ndarray, cutoff: int = 0):
     """Every label split into the connected pieces it has in the graph,
-    then pieces smaller than `cutoff` fused (`connected_components` over the
-    edges whose ends share a label). The chunked giant-cloud solver needs
-    it: a window's label kept on the window's core can be connected only
-    through halo vertices outside the core. The JAX version prefers its
-    native union-find; this is its scipy path. Returns (components,
-    in_component int32) in first-occurrence order."""
+    then pieces smaller than `cutoff` fused, by the host library's
+    union-find over the edges whose ends share a label. The chunked
+    giant-cloud solver needs it: a window's label kept on the window's core
+    can be connected only through halo vertices outside the core. Returns
+    (components, in_component int32) in first-occurrence order."""
+    source = np.asarray(source)
+    target = np.asarray(target)
+    in_component = np.asarray(in_component)
+    active = in_component[source] == in_component[target]
+    return native.connected_comp(n_ver, source, target, active, cutoff)
+
+
+def relabel_connected_plain(n_ver: int, source: np.ndarray,
+                            target: np.ndarray, in_component: np.ndarray,
+                            cutoff: int = 0):
+    """`relabel_connected` by scipy (`connected_components`): equal to it
+    at cutoff 0; for the tests."""
     source = np.asarray(source)
     target = np.asarray(target)
     in_component = np.asarray(in_component)

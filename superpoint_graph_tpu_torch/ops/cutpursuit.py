@@ -5,8 +5,9 @@ Carried over unchanged in behaviour from superpoint_graph_tpu/ops/cutpursuit.py
 `_greedy_matching`, `_mincut_binary`), whose package `__init__` imports
 jax. Same `seed`, `max_iter` and `flow_steps`, so the labels equal the JAX
 package's oracle.
-The greedy matching runs as the plain Python scan (the JAX package may call
-its native C++ twin, same result).
+The merge rounds' greedy matching runs in the host library
+(`native.greedy_matching`), as the JAX package's does when its library
+builds; `greedy_matching_plain` is the same scan in Python, for the tests.
 
 Solves  argmin_x sum_i nw_i ||x_i - f_i||^2 + reg sum_(u,v) w_uv [x_u != x_v]
 over piecewise-constant x (Landrieu & Obozinski 2017, l0 variant). The
@@ -22,6 +23,7 @@ import numpy as np
 from scipy.sparse import csr_matrix
 from scipy.sparse.csgraph import breadth_first_order, maximum_flow
 
+from .. import native
 from .components import connected_components, group_components
 
 _FLOW_SCALE = 2**16
@@ -160,7 +162,7 @@ def merge_rounds(S, m, pair_a, pair_b, pair_w, n_comp, reg, max_rounds=10):
             break
         order = np.argsort(delta[good])
         Ag, Bg = A[good][order], B[good][order]
-        acc = _greedy_matching(Ag, Bg, n_comp)
+        acc = native.greedy_matching(Ag, Bg, n_comp)
         if not acc.any():
             break
         keep = np.minimum(Ag[acc], Bg[acc])
@@ -171,9 +173,11 @@ def merge_rounds(S, m, pair_a, pair_b, pair_w, n_comp, reg, max_rounds=10):
     return _compress(label)
 
 
-def _greedy_matching(a: np.ndarray, b: np.ndarray, n_comp: int) -> np.ndarray:
-    """Accept mask over ordered candidates: candidate i is accepted iff
-    neither endpoint was touched by an earlier accepted one."""
+def greedy_matching_plain(a: np.ndarray, b: np.ndarray,
+                          n_comp: int) -> np.ndarray:
+    """`native.greedy_matching` in Python, for the tests: accept mask over
+    ordered candidates, candidate i accepted iff neither endpoint was
+    touched by an earlier accepted one."""
     used = np.zeros(n_comp, bool)
     acc = np.zeros(len(a), bool)
     for i, (x, y) in enumerate(zip(a.tolist(), b.tolist())):

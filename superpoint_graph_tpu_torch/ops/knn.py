@@ -2,10 +2,14 @@
 
 Port of superpoint_graph_tpu/ops/knn.py (`knn`, `_knn_with_adj`,
 `compute_graph_nn_2`, `knn_bigcloud` and its level search). Every search here
-is exact: candidates are picked on a |q|^2 + |p|^2 - 2 q.p distance tile
-(full f32, coordinates centred to shrink the cancellation) with `topk` and a
-few spare places, then re-ranked on the exact (q - p)^2 distance with the
-lower index first on equal distances, the point itself removed by index.
+is exact: candidates are picked on a distance tile with `topk` and a few
+spare places, then re-ranked on the exact (q - p)^2 distance with the lower
+index first on equal distances, the point itself removed by index. The
+brute force of a room picks on the expanded |q|^2 + |p|^2 - 2 q.p form
+(full f32, coordinates centred on the mean to shrink the cancellation); the
+sorted-cell search and its brute-force fallback, which serve stations of
+hundreds of metres, pick on the direct form (`_direct_d2`), whose error does
+not grow with the distance from a centre.
 The JAX version selects with the TPU's approximate `approx_min_k` (recall
 0.95), so the two agree on ~99% of indices, not all.
 
@@ -26,12 +30,12 @@ _SPARE = 8  # extra candidates re-ranked exactly: covers f32 near-ties
 # queries per straggler brute-force slice of knn_bigcloud (tests lower it)
 FALLBACK_QUERY_CHUNK = 8192
 # distance-tile elements per launch of the brute force and the cell search:
-# 2^27 f32 = 512 MB, which bounds the transients at any cloud size
+# 2^27 f32 = 512 MB a tile (a few tiles of transients), at any cloud size
 TILE_ELEMS = 1 << 27
 # knn_bigcloud's ladder (JAX knn.py:653-663, 719-724): level cell sizes at
 # quantiles x factors of the sampled k-NN radius, then larger by
 # EXTRA_LEVEL_FACTOR; queries a block (BLOCK_Q) and the widest window
-# (WINDOW_CAP) while many queries are pending; the ladder stops once pending
+# (WINDOW_CAP) at level 0; the ladder stops once pending
 # queries x points falls below LEVEL_MIN_WORK (the rest is cheaper by brute
 # force). Tests lower them to reach every branch at small sizes.
 LEVEL_QUANTILES = ((0.9, 1.1), (0.999, 1.25))
@@ -74,24 +78,35 @@ def _rerank(xyz, q_ids, cand, k: int, tie_ids=None):
 
 
 def knn_vs_db(xyz: torch.Tensor, q_ids: torch.Tensor, k: int,
-              block_q: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+              block_q: int | None = None, direct: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN of the points q_ids [m] of xyz [n, 3] among all the other
     points, by blocked brute force: query slices of `block_q` rows (default
-    TILE_ELEMS // n) against the whole cloud. Returns (ids [m, k] int64,
-    squared distances [m, k] f32), ascending, lower id first on ties."""
+    TILE_ELEMS // n) against the whole cloud. Candidates are picked on the
+    expanded form about the cloud's mean, whose error grows as eps times
+    the squared distance from the mean: small for a room, while across a
+    station of hundreds of metres it can exceed the spare candidates'
+    margin, so `direct` picks them on the direct form (`_direct_d2`, about
+    twice the elementwise passes over the tile). Returns (ids [m, k]
+    int64, squared distances [m, k] f32), ascending, lower id first on
+    ties."""
     n = xyz.shape[0]
     n_cand = min(k + 1 + _SPARE, n)
     if n_cand < k + 1:
         raise ValueError(f"k={k} needs more than {n} points")
-    pts = xyz - xyz.mean(0)
-    sq = (pts * pts).sum(1)
+    if not direct:
+        pts = xyz - xyz.mean(0)
+        sq = (pts * pts).sum(1)
     m = q_ids.shape[0]
     out_i = torch.empty((m, k), dtype=torch.int64, device=xyz.device)
     out_d = torch.empty((m, k), dtype=torch.float32, device=xyz.device)
     bq = block_q or max(1, TILE_ELEMS // n)
     for s in range(0, m, bq):
         ids = q_ids[s:s + bq]
-        d2 = sq[ids, None] + sq[None, :] - 2.0 * (pts[ids] @ pts.T)
+        if direct:
+            d2 = _direct_d2(xyz[ids][None], xyz[None])[0]
+        else:
+            d2 = sq[ids, None] + sq[None, :] - 2.0 * (pts[ids] @ pts.T)
         _, cand = torch.topk(d2, n_cand, dim=1, largest=False)
         out_i[s:s + bq], out_d[s:s + bq] = _rerank(xyz, ids, cand, k)
     return out_i, out_d
@@ -186,10 +201,7 @@ def _knn_cells_q(xyz, xs, cs, order, qpos, starts, spans, k: int,
     inside = inside.reshape(mb, 1, 9 * window)
     q_xyz, q_cell = xs[qpos], cs[qpos]                         # [mb, bq, 3]
     c_xyz, c_cell = xs[cpos], cs[cpos]                         # [mb, 9W, 3]
-    origin = q_xyz[:, :1, :]
-    qc, cc = q_xyz - origin, c_xyz - origin
-    d2 = ((qc * qc).sum(-1)[:, :, None] + (cc * cc).sum(-1)[:, None, :]
-          - 2.0 * torch.bmm(qc, cc.transpose(1, 2)))
+    d2 = _direct_d2(q_xyz, c_xyz)
     # a candidate's column key moved back by its pass's offset must equal
     # the query's column key; comparisons of broadcast operands only, so no
     # [mb, bq, 9W] integer temporaries
@@ -210,6 +222,21 @@ def _knn_cells_q(xyz, xs, cs, order, qpos, starts, spans, k: int,
                    tie_ids)
 
 
+def _direct_d2(q, c):
+    """Squared distances [mb, bq, W] of queries q [mb, bq, 3] to candidates
+    c [mb, W, 3] in `sqdist`'s form and order, one coordinate at a time.
+    The expanded form |q|^2 + |c|^2 - 2 q.c about one origin a block loses
+    ~eps * |q - origin|^2: a block of sorted queries can wrap from one end
+    of a cell strip to the other, and at a Semantic3D station's 220 m that
+    error (~1e-3 m^2) put a nearer neighbour outside the candidates."""
+    d = q[:, :, None, 0] - c[:, None, :, 0]
+    d2 = d * d
+    d = q[:, :, None, 1] - c[:, None, :, 1]
+    d2 = d2 + d * d
+    d = q[:, :, None, 2] - c[:, None, :, 2]
+    return d2 + d * d
+
+
 def _bucket_sizes(cap: int):
     sizes, s = [], 256
     while s < cap:
@@ -226,10 +253,12 @@ def knn_bigcloud(xyz: torch.Tensor, k: int):
     exactness certificate failed: found k-th distance <= the cell size (so
     every nearer point lies in the 27-cell block) and no truncated window.
     Once pending queries x points falls below LEVEL_MIN_WORK the rest goes
-    to blocked brute force in FALLBACK_QUERY_CHUNK slices. Query blocks of BLOCK_Q consecutive sorted queries (8 after
-    level 0 when few are pending) are grouped by the widest of their 9
-    column windows into power-of-two window buckets up to WINDOW_CAP (4x
-    when few are pending), and launched in chunks of TILE_ELEMS distances.
+    to a direct-form brute force in FALLBACK_QUERY_CHUNK slices. Query
+    blocks of BLOCK_Q consecutive sorted queries (8 after level 0) are
+    grouped by the widest of their 9 column windows into power-of-two
+    window buckets up to WINDOW_CAP (4x after level 0), and launched in
+    chunks of TILE_ELEMS distances; every candidate distance is the
+    direct form's.
     The sorted-order coordinates and cells of a level are one gather each
     (the JAX `_sort_gather`).
 
@@ -262,7 +291,13 @@ def knn_bigcloud(xyz: torch.Tensor, k: int):
         if P == 0 or (level_stats and P * n < LEVEL_MIN_WORK):
             break
         t0 = time.perf_counter()
-        bq, cap = (BLOCK_Q, WINDOW_CAP) if P > 65536 else (8, 4 * WINDOW_CAP)
+        # level 0: blocks of BLOCK_Q; the pending queries of a later level
+        # come in runs that wrap from one cell strip's end to the next
+        # strip's start (a window across a whole strip, truncated), so
+        # blocks of 8 (the JAX ladder keeps BLOCK_Q while more than 65,536
+        # are pending: at a 12.8M-voxel station ~76,000 queries then failed
+        # every level and went to brute force)
+        bq, cap = (BLOCK_Q, WINDOW_CAP) if P == n else (8, 4 * WINDOW_CAP)
         # at most 2^20 cells an axis, so the three-axis key fits an int64
         # (JAX clamps at 32,000 for its fused int32 xy key)
         h = max(h, extent / float(1 << 20))
@@ -315,7 +350,7 @@ def knn_bigcloud(xyz: torch.Tensor, k: int):
     n_bad = len(pending)
     for s in range(0, n_bad, FALLBACK_QUERY_CHUNK):
         ids = pending[s:s + FALLBACK_QUERY_CHUNK]
-        out_i[ids], out_d[ids] = knn_vs_db(xyz, ids, k)
+        out_i[ids], out_d[ids] = knn_vs_db(xyz, ids, k, direct=True)
     t_stage["check_and_fallback"] = time.perf_counter() - t0
     info = {"h": ladder[-1], "levels": level_stats, "n_fallback": int(n_bad),
             "window": WINDOW_CAP, "n_blocks": -(-n // BLOCK_Q),

@@ -29,10 +29,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import native
 from .device import card_unless
 from .graph.spg import compute_sp_graph
 from .ops import voxel
-from .ops.components import connected_components, group_components
+from .ops.components import group_components
 from .ops.cutpursuit import cutpursuit as cutpursuit_exact
 from .ops.cutpursuit import merge_regions
 from .ops.cutpursuit_band import cutpursuit_band_device
@@ -124,7 +125,8 @@ def edge_weights(distances: np.ndarray, lambda_edge_weight: float) -> np.ndarray
 def _cutpursuit_device_path(xyz, rgb, graph_nn, dev, cfg: PartitionConfig):
     """The device solve over the kNN tables in `dev` (only the labels come
     back), then the host merge step with unit node weights over the directed
-    kNN edges, then the cutoff. Returns (components, in_component int32,
+    kNN edges, then the cutoff fuse (the host library's `connected_comp`,
+    as in the JAX version). Returns (components, in_component int32,
     {"solve": s, "merge": s})."""
     n = len(xyz)
     geof = dev["geof"]
@@ -147,7 +149,8 @@ def _cutpursuit_device_path(xyz, rgb, graph_nn, dev, cfg: PartitionConfig):
                             float(cfg.reg_strength))
     if cfg.cp_cutoff > 0:
         active = in_comp[src] == in_comp[tgt]
-        _, in_comp = connected_components(n, src, tgt, active, cfg.cp_cutoff)
+        _, in_comp = native.connected_comp(n, src, tgt, active,
+                                           cfg.cp_cutoff)
     times = {"solve": t1 - t0, "merge": time.perf_counter() - t1}
     return group_components(in_comp), in_comp.astype(np.int32), times
 

@@ -96,6 +96,25 @@ def test_knn_bigcloud_small_windows_exact(monkeypatch):
     _assert_exact(idx.numpy(), d2.numpy(), xyz, 45)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 3])
+def test_knn_bigcloud_exact_far_from_block_start(seed):
+    """Two jittered 8^3 grids of 1 m pitch, one 300 m above the other: the
+    sorted-cell blocks that run from the lower grid's top into the upper
+    grid's bottom put candidates ~300 m from the block's first query. An
+    expanded |q|^2 + |c|^2 - 2 q.c tile about that query is ~eps * 300^2
+    off there, which reorders the near-equal shells of a grid across the
+    spare candidates (the miss of a 220 m station's 12.8M voxels); the
+    direct form keeps the search exact."""
+    rs = np.random.RandomState(seed)
+    grid = np.stack(np.meshgrid(*[np.arange(8.0)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3)
+    low = grid + rs.uniform(-1e-3, 1e-3, grid.shape)
+    high = grid + rs.uniform(-1e-3, 1e-3, grid.shape) + [0.0, 0.0, 300.0]
+    xyz = np.ascontiguousarray(np.concatenate([low[7:], high]), np.float32)
+    idx, d2, _ = knn_t.knn_bigcloud(torch.from_numpy(xyz), 45)
+    _assert_exact(idx.numpy(), d2.numpy(), xyz, 45)
+
+
 @pytest.mark.parametrize("k", [8, 45])
 def test_knn_bigcloud_agrees_with_jax(k):
     """Index agreement with the JAX search (approximate selection) >= 0.99

@@ -432,3 +432,45 @@ def test_submission_spread_on_card_matches_plain(dev, tmp_path):
     np.testing.assert_array_equal(cpu, got)
     assert (tmp_path / "card.labels").read_bytes() == \
         (tmp_path / "cpu.labels").read_bytes()
+
+
+# ------------------------------------------- the dense solver, the prunes
+def test_dense_solver_on_card_matches_cpu(dev):
+    """ops/cutpursuit_dense.py on the card against the CPU on a
+    3,000-vertex kNN graph: the same labels (fixed-order segment sums on
+    both), and the same labels on a second card call."""
+    from scipy.spatial import cKDTree
+
+    from superpoint_graph_tpu_torch.ops.cutpursuit_dense import (
+        cutpursuit_dense)
+
+    rs = np.random.RandomState(3)
+    xyz = rs.rand(3000, 3).astype(np.float32)
+    d, i = cKDTree(xyz).query(xyz, 6)
+    src, tgt = np.repeat(np.arange(3000), 5), i[:, 1:].ravel()
+    w = (1.0 / (1.0 + d[:, 1:].ravel() / d[:, 1:].mean())).astype(np.float32)
+    f = np.concatenate([xyz, 0.1 * rs.rand(3000, 2)], 1).astype(np.float32)
+    got = cutpursuit_dense(f, src, tgt, w, 0.05, device=dev)[1]
+    np.testing.assert_array_equal(
+        got, cutpursuit_dense(f, src, tgt, w, 0.05, device="cpu")[1])
+    np.testing.assert_array_equal(
+        got, cutpursuit_dense(f, src, tgt, w, 0.05, device=dev)[1])
+
+
+def test_prune_above_device_max_equals_card_prune(dev, monkeypatch):
+    """Above PRUNE_DEVICE_MAX rows `prune` runs the host library; on the
+    station generator's points its voxels and means equal the card's
+    prune (f32 keys and f32 sums in point order on both)."""
+    from superpoint_graph_tpu_torch import native
+    from superpoint_graph_tpu_torch.data.synthetic import station_chunk
+    from superpoint_graph_tpu_torch.ops import voxel
+
+    xyz = station_chunk(np.random.default_rng(0), 500_000)
+    zeros = np.zeros((len(xyz), 3), np.uint8)
+    want = voxel.prune(xyz, 0.1, zeros, None, None, 0, 0, device=dev)
+    monkeypatch.setattr(voxel, "PRUNE_DEVICE_MAX", len(xyz) - 1)
+    calls = native.prune.calls
+    got = voxel.prune(xyz, 0.1, zeros, None, None, 0, 0, device=dev)
+    assert native.prune.calls == calls + 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -7,6 +7,7 @@ spg_adjacency="knn") -> superpoint batch -> SpgModel (flax weights carried
 by the bridge) -> labels spread to the raw points. The default cut pursuit
 (the device solver; the JAX package's "tpu") is held to the JAX one on the
 same room by quality: energy, component count and OOA."""
+import importlib.util
 import os
 import subprocess
 import sys
@@ -363,7 +364,13 @@ def _entry_point_calls():
                                                      partition_big_shard,
                                                      partition_shard)
     from superpoint_graph_tpu_torch.parallel.mesh import make_mesh
+    from superpoint_graph_tpu_torch.ops.cutpursuit_dense import (
+        cutpursuit_dense)
 
+    spec = importlib.util.spec_from_file_location(
+        "headline", ROOT / "tools" / "torch_semantic3d_headline.py")
+    headline = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(headline)
     xyz = np.random.RandomState(0).rand(50, 3).astype(np.float32)
     edges = np.arange(49), np.arange(1, 50)
     return {
@@ -428,6 +435,9 @@ def _entry_point_calls():
                                                                      4),
         "multihost.initialize": lambda: multihost.initialize(
             "tcp://127.0.0.1:1", 1, 0),
+        "cutpursuit_dense": lambda: cutpursuit_dense(
+            xyz, *edges, np.ones(49), 0.1),
+        "run_chain": lambda: headline.run_chain(1_000, 500, 0.5),
     }
 
 
@@ -444,7 +454,7 @@ def _entry_point_calls():
     "partition_file[custom_dataset]", "preprocess_file[vkitti]",
     "write_submission", "write_semantic3d.main", "make_mesh",
     "partition_cloud_sharded", "partition_big_sharded", "sharded_knn_geof",
-    "multihost.initialize"])
+    "multihost.initialize", "cutpursuit_dense", "run_chain"])
 def test_entry_points_default_to_card(name):
     """Called without `device`, every entry point asks for the card, and
     raises where there is none rather than run on the CPU."""
@@ -456,9 +466,10 @@ def test_entry_points_default_to_card(name):
 
 def test_port_imports_no_jax():
     """Every module of the port (cli/, ssp/ and the readers and ply
-    writers included), and chip_smoke.py, imports without jax, flax, h5py,
-    pandas, sklearn, laspy or any module of the JAX package (a fresh
-    interpreter)."""
+    writers included), chip_smoke.py, tools/torch_semantic3d_headline.py
+    and tools/torch_knn_time.py import without jax, flax, h5py, pandas, sklearn, laspy or any module of
+    the JAX package (a fresh interpreter), and the host library the port
+    loads is its own build, not the JAX package's native/ one."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import superpoint_graph_tpu_torch as p\n"
@@ -496,13 +507,24 @@ def test_port_imports_no_jax():
         "        'superpoint_graph_tpu_torch.parallel.multihost',\n"
         "        'superpoint_graph_tpu_torch.parallel.dp',\n"
         "        'superpoint_graph_tpu_torch.parallel.partition_shard',\n"
-        "        'superpoint_graph_tpu_torch.parallel.partition_big_shard'}"
+        "        'superpoint_graph_tpu_torch.parallel.partition_big_shard',\n"
+        "        'superpoint_graph_tpu_torch.native',\n"
+        "        'superpoint_graph_tpu_torch.models.pool',\n"
+        "        'superpoint_graph_tpu_torch.utils.tracing',\n"
+        "        'superpoint_graph_tpu_torch.ops.cutpursuit_dense'}"
         " <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "spec = importlib.util.spec_from_file_location('chip_smoke', "
-        "'chip_smoke.py')\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "for mod, path in (('chip_smoke', 'chip_smoke.py'),\n"
+        "                  ('headline', 'tools/torch_semantic3d_headline.py'),\n"
+        "                  ('knn_time', 'tools/torch_knn_time.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(mod, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import superpoint_graph_tpu_torch.native as nat\n"
+        "nat.greedy_matching([0], [1], 2)\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'spgt_native' in maps and '/native/libspgt_native' not in "
+        "maps\n"
         "bad = [m for m in ('jax', 'flax', 'h5py', 'pandas', 'sklearn',\n"
         "                   'laspy')\n"
         "       if m in sys.modules]\n"
