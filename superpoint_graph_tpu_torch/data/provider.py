@@ -27,7 +27,7 @@ import torch
 from ..device import card_unless
 from ..ops.nn1 import nn1
 from ..ops.voxel import prune
-from ..utils import plyio
+from ..utils import plyio, tracing
 
 S3DIS_LABELS = {
     "ceiling": 1, "floor": 2, "wall": 3, "column": 4, "beam": 5, "window": 6,
@@ -57,11 +57,11 @@ def read_rows(path: str) -> np.ndarray:
 
 
 def _nn1_host(db: np.ndarray, queries: np.ndarray, device) -> np.ndarray:
-    return nn1(
+    return tracing.to_host(nn1(
         torch.as_tensor(np.ascontiguousarray(db, np.float32), device=device),
         torch.as_tensor(np.ascontiguousarray(queries, np.float32),
                         device=device),
-    ).cpu().numpy()
+    ), "nn1.result").numpy()
 
 
 def read_s3dis_format(raw_path: str, label_out: bool = True, device=None):
@@ -69,7 +69,9 @@ def read_s3dis_format(raw_path: str, label_out: bool = True, device=None):
     `device` (default: the card). Returns (xyz f32, rgb u8[, labels u8,
     objects u32])."""
     device = card_unless(device)
-    room = read_rows(raw_path)
+    with tracing.span("spgt.read.parse"):
+        room = read_rows(raw_path)
+    tracing.count("parse.rows", len(room))
     xyz = np.ascontiguousarray(room[:, 0:3], dtype=np.float32)
     if room.shape[1] >= 6:
         rgb = np.ascontiguousarray(room[:, 3:6], dtype=np.uint8)
@@ -82,15 +84,19 @@ def read_s3dis_format(raw_path: str, label_out: bool = True, device=None):
     ann = sorted(glob.glob(os.path.dirname(raw_path) + "/Annotations/*.txt"))
     if not ann:
         return xyz, rgb, labels, objects
-    pts = [read_rows(f)[:, 0:3].astype(np.float32) for f in ann]
-    idx = _nn1_host(xyz, np.concatenate(pts), device)
-    start = 0
-    for i_object, (fobj, p) in enumerate(zip(ann, pts), start=1):
-        name = os.path.splitext(os.path.basename(fobj))[0]
-        sl = idx[start:start + len(p)]
-        labels[sl] = object_name_to_label(name.split("_")[0])
-        objects[sl] = i_object
-        start += len(p)
+    # one span for all the annotation files (a room may hold hundreds)
+    with tracing.span("spgt.read.parse", files=len(ann)):
+        pts = [read_rows(f)[:, 0:3].astype(np.float32) for f in ann]
+    tracing.count("parse.rows", sum(len(p) for p in pts))
+    with tracing.span("spgt.read.labels"):
+        idx = _nn1_host(xyz, np.concatenate(pts), device)
+        start = 0
+        for i_object, (fobj, p) in enumerate(zip(ann, pts), start=1):
+            name = os.path.splitext(os.path.basename(fobj))[0]
+            sl = idx[start:start + len(p)]
+            labels[sl] = object_name_to_label(name.split("_")[0])
+            objects[sl] = i_object
+            start += len(p)
     return xyz, rgb, labels, objects
 
 
@@ -114,7 +120,10 @@ def interpolate_labels(xyz_up, xyz, labels, device=None):
     labels = np.asarray(labels)
     if labels.ndim > 1 and labels.shape[1] > 1:
         labels = np.argmax(labels, 1)
-    return labels[_nn1_host(xyz, xyz_up, device)].flatten()
+    with tracing.span("spgt.spread.nn1"):
+        idx = _nn1_host(xyz, xyz_up, device)
+    with tracing.span("spgt.spread.gather"):
+        return labels[idx].flatten()
 
 
 def read_semantic3d_format(data_file: str, n_class: int,
@@ -136,24 +145,34 @@ def read_semantic3d_format(data_file: str, n_class: int,
     device = card_unless(device)
     has_labels = n_class > 0 and bool(file_label_path)
     chunk = ver_batch if ver_batch > 0 else None
-    reader = pd.read_csv(data_file, sep=" ", header=None, chunksize=chunk)
-    chunks = reader if chunk else [reader]
-    lab_reader = None
-    if has_labels:
-        lab_reader = pd.read_csv(file_label_path, header=None,
-                                 chunksize=chunk)
-        lab_reader = lab_reader if chunk else iter([lab_reader])
+    # the text is parsed when a chunk reader is iterated (by read_csv
+    # itself without chunks)
+    with tracing.span("spgt.read.parse"):
+        reader = pd.read_csv(data_file, sep=" ", header=None,
+                             chunksize=chunk)
+        chunks = iter(reader if chunk else [reader])
+        lab_reader = None
+        if has_labels:
+            lab_reader = pd.read_csv(file_label_path, header=None,
+                                     chunksize=chunk)
+            lab_reader = lab_reader if chunk else iter([lab_reader])
     xyz_parts, rgb_parts, lab_parts = [], [], []
-    for part in chunks:
+    while True:
+        with tracing.span("spgt.read.parse"):
+            part = next(chunks, None)
+            lab_c = (next(lab_reader).values.ravel().astype(np.int32)
+                     if has_labels and part is not None else None)
+        if part is None:
+            break
+        tracing.count("parse.rows", len(part))
         v = part.values
         xyz_c = np.ascontiguousarray(v[:, 0:3], np.float32)
         rgb_c = np.ascontiguousarray(v[:, 4:7], np.uint8)
-        lab_c = (next(lab_reader).values.ravel().astype(np.int32)
-                 if has_labels else None)
         if voxel_width > 0:
-            xyz_c, rgb_c, lab_c, _ = prune(
-                xyz_c, voxel_width, rgb_c, lab_c, None,
-                n_class if has_labels else 0, 0, device=device)
+            with tracing.span("spgt.read.prune"):
+                xyz_c, rgb_c, lab_c, _ = prune(
+                    xyz_c, voxel_width, rgb_c, lab_c, None,
+                    n_class if has_labels else 0, 0, device=device)
         xyz_parts.append(xyz_c)
         rgb_parts.append(rgb_c)
         lab_parts.append(lab_c)
@@ -437,10 +456,23 @@ def interpolate_labels_batch(data_file: str, xyz, labels, ver_batch: int,
     db = torch.as_tensor(np.ascontiguousarray(xyz, np.float32),
                          device=device)
     out = []
-    for part in pd.read_csv(data_file, sep=" ", header=None,
-                            chunksize=ver_batch if ver_batch > 0 else 10**9):
-        q = torch.as_tensor(np.ascontiguousarray(part.values[:, 0:3],
-                                                 np.float32), device=device)
-        out.append(labels[nn1(db, q).cpu().numpy()].flatten())
+    with tracing.span("spgt.spread.parse"):
+        chunks = iter(pd.read_csv(
+            data_file, sep=" ", header=None,
+            chunksize=ver_batch if ver_batch > 0 else 10**9))
+    while True:
+        # the text is parsed when the chunk reader is iterated
+        with tracing.span("spgt.spread.parse"):
+            part = next(chunks, None)
+        if part is None:
+            break
+        tracing.count("parse.rows", len(part))
+        with tracing.span("spgt.spread.nn1"):
+            q = torch.as_tensor(np.ascontiguousarray(part.values[:, 0:3],
+                                                     np.float32),
+                                device=device)
+            idx = tracing.to_host(nn1(db, q), "spread.nn1").numpy()
+        with tracing.span("spgt.spread.gather"):
+            out.append(labels[idx].flatten())
     return (np.concatenate(out) if out
             else np.zeros(0, dtype=labels.dtype))

@@ -13,6 +13,7 @@ from scipy.spatial import Delaunay
 
 from ..device import card_unless
 from ..ops.knn import knn
+from ..utils import tracing
 
 
 def _cross_edges(src, tgt, in_component) -> np.ndarray:
@@ -37,7 +38,7 @@ def _delaunay_cross_edges(xyz, in_component) -> np.ndarray:
 def _knn_cross_edges(xyz, in_component, device, k: int = 10):
     """kNN edges crossing components (both directions, unique)."""
     idx, _ = knn(torch.tensor(xyz, device=device), k)
-    tgt = idx.cpu().numpy().reshape(-1)
+    tgt = tracing.to_host(idx, "spg.knn").numpy().reshape(-1)
     src = np.repeat(np.arange(len(xyz)), k)
     return _cross_edges(src, tgt, in_component)
 
@@ -99,76 +100,84 @@ def compute_sp_graph(xyz, d_max, in_component, labels, n_labels,
     has_labels = labels is not None and np.size(labels) > 1
     label_hist = has_labels and np.ndim(labels) > 1 and np.shape(labels)[1] > 1
 
-    if knn_edges is not None:
-        edges = _cross_edges(np.asarray(knn_edges[0], np.int64),
-                             np.asarray(knn_edges[1], np.int64), in_component)
-    elif adjacency == "delaunay":
-        edges = _delaunay_cross_edges(xyz, in_component)
-    elif adjacency == "knn":
-        edges = _knn_cross_edges(xyz, in_component, device)
-    else:
-        raise ValueError(f"unknown adjacency {adjacency!r}")
-
-    if d_max > 0 and edges.shape[1] > 0:
-        dist = np.sqrt(((xyz[edges[0]] - xyz[edges[1]]) ** 2).sum(1))
-        edges = edges[:, dist < d_max]
-
-    # group support edges into superedges by (source comp, target comp)
-    ecomp = in_component[edges].astype(np.int64)
-    key = np.int64(n_com) * ecomp[0] + ecomp[1]
-    order = np.argsort(key, kind="stable")
-    edges = edges[:, order]
-    ecomp = ecomp[:, order]
-    key = key[order]
-    n_edg = edges.shape[1]
-    if n_edg > 0:
-        head = np.ones(n_edg, bool)
-        head[1:] = key[1:] != key[:-1]
-        sedge_id = np.cumsum(head) - 1
-        n_sedg = int(sedge_id[-1]) + 1
-    else:
-        sedge_id = np.zeros(0, np.int64)
-        n_sedg = 0
-
-    graph = {"is_nn": False}
-    cent, length, surface, volume = _component_stats(xyz, in_component, n_com)
-    graph["sp_centroids"] = cent
-    graph["sp_length"] = length.astype(np.float32)[:, None]
-    graph["sp_surface"] = surface.astype(np.float32)[:, None]
-    graph["sp_volume"] = volume.astype(np.float32)[:, None]
-    counts = np.bincount(in_component, minlength=n_com)
-    graph["sp_point_count"] = counts.astype(np.uint64)[:, None]
-
-    if has_labels:
-        labels = np.asarray(labels)
-        hist = np.zeros((n_com, n_labels + 1), np.int64)
-        if label_hist:
-            np.add.at(hist, in_component, labels.astype(np.int64))
+    with tracing.span("spgt.spg.cross_edges"):
+        if knn_edges is not None:
+            edges = _cross_edges(np.asarray(knn_edges[0], np.int64),
+                                 np.asarray(knn_edges[1], np.int64),
+                                 in_component)
+        elif adjacency == "delaunay":
+            edges = _delaunay_cross_edges(xyz, in_component)
+        elif adjacency == "knn":
+            edges = _knn_cross_edges(xyz, in_component, device)
         else:
-            np.add.at(hist, (in_component, labels.astype(np.int64).ravel()), 1)
-        graph["sp_labels"] = hist.astype(np.uint32)
-    else:
-        graph["sp_labels"] = []
+            raise ValueError(f"unknown adjacency {adjacency!r}")
 
-    # superedge features via segment reductions over the support edges
-    com_src = np.zeros(n_sedg, np.int64)
-    com_tgt = np.zeros(n_sedg, np.int64)
-    if n_edg > 0:
-        firsts = np.flatnonzero(head)
-        com_src = ecomp[0, firsts]
-        com_tgt = ecomp[1, firsts]
-    delta = xyz[edges[0]] - xyz[edges[1]]
-    cnt_e = np.bincount(sedge_id, minlength=n_sedg).astype(np.float64)
-    dmean = np.zeros((n_sedg, 3))
-    np.add.at(dmean, sedge_id, delta.astype(np.float64))
-    dmean /= np.maximum(cnt_e, 1)[:, None]
-    dvar = np.zeros((n_sedg, 3))
-    np.add.at(dvar, sedge_id, (delta - dmean[sedge_id]) ** 2)
-    dvar /= np.maximum(cnt_e, 1)[:, None]  # np.std is ddof=0 (graphs.py:204)
-    dnorm = np.zeros(n_sedg)
-    np.add.at(dnorm, sedge_id, np.sqrt((delta.astype(np.float64) ** 2).sum(1)))
-    dnorm /= np.maximum(cnt_e, 1)
-    dstd = np.where((cnt_e <= 1)[:, None], 0.0, np.sqrt(dvar))
+        if d_max > 0 and edges.shape[1] > 0:
+            dist = np.sqrt(((xyz[edges[0]] - xyz[edges[1]]) ** 2).sum(1))
+            edges = edges[:, dist < d_max]
+
+        # group support edges into superedges by (source comp, target comp)
+        ecomp = in_component[edges].astype(np.int64)
+        key = np.int64(n_com) * ecomp[0] + ecomp[1]
+        order = np.argsort(key, kind="stable")
+        edges = edges[:, order]
+        ecomp = ecomp[:, order]
+        key = key[order]
+        n_edg = edges.shape[1]
+        if n_edg > 0:
+            head = np.ones(n_edg, bool)
+            head[1:] = key[1:] != key[:-1]
+            sedge_id = np.cumsum(head) - 1
+            n_sedg = int(sedge_id[-1]) + 1
+        else:
+            sedge_id = np.zeros(0, np.int64)
+            n_sedg = 0
+
+    with tracing.span("spgt.spg.components"):
+        graph = {"is_nn": False}
+        cent, length, surface, volume = _component_stats(xyz, in_component,
+                                                         n_com)
+        graph["sp_centroids"] = cent
+        graph["sp_length"] = length.astype(np.float32)[:, None]
+        graph["sp_surface"] = surface.astype(np.float32)[:, None]
+        graph["sp_volume"] = volume.astype(np.float32)[:, None]
+        counts = np.bincount(in_component, minlength=n_com)
+        graph["sp_point_count"] = counts.astype(np.uint64)[:, None]
+
+        if has_labels:
+            labels = np.asarray(labels)
+            hist = np.zeros((n_com, n_labels + 1), np.int64)
+            if label_hist:
+                np.add.at(hist, in_component, labels.astype(np.int64))
+            else:
+                np.add.at(hist, (in_component,
+                                 labels.astype(np.int64).ravel()), 1)
+            graph["sp_labels"] = hist.astype(np.uint32)
+        else:
+            graph["sp_labels"] = []
+
+    with tracing.span("spgt.spg.superedges"):
+        # superedge features via segment reductions over the support edges
+        com_src = np.zeros(n_sedg, np.int64)
+        com_tgt = np.zeros(n_sedg, np.int64)
+        if n_edg > 0:
+            firsts = np.flatnonzero(head)
+            com_src = ecomp[0, firsts]
+            com_tgt = ecomp[1, firsts]
+        delta = xyz[edges[0]] - xyz[edges[1]]
+        cnt_e = np.bincount(sedge_id, minlength=n_sedg).astype(np.float64)
+        dmean = np.zeros((n_sedg, 3))
+        np.add.at(dmean, sedge_id, delta.astype(np.float64))
+        dmean /= np.maximum(cnt_e, 1)[:, None]
+        dvar = np.zeros((n_sedg, 3))
+        np.add.at(dvar, sedge_id, (delta - dmean[sedge_id]) ** 2)
+        # np.std is ddof=0 (graphs.py:204)
+        dvar /= np.maximum(cnt_e, 1)[:, None]
+        dnorm = np.zeros(n_sedg)
+        np.add.at(dnorm, sedge_id,
+                  np.sqrt((delta.astype(np.float64) ** 2).sum(1)))
+        dnorm /= np.maximum(cnt_e, 1)
+        dstd = np.where((cnt_e <= 1)[:, None], 0.0, np.sqrt(dvar))
 
     eps = 1e-6
     graph["source"] = com_src.astype(np.uint32)[:, None]

@@ -27,6 +27,7 @@ import torch
 from ..device import card_unless
 from ..ops.cutpursuit_band import _Segments
 from ..ops.eigen3 import eigvals3x3_cols
+from ..utils import tracing
 
 
 def _lexsort(*keys):
@@ -75,7 +76,8 @@ def _superedge_stats(xyz, u, v, cu, cv, head):
     std (ddof 0, E[x^2] - E[x]^2) of the support edges' deltas, their mean
     norm, and the edge count."""
     seg = torch.cumsum(head.to(torch.int64), 0) - 1
-    by_sedg = _Segments(seg, int(head.sum()), presorted=True)
+    n_sedg = int(tracing.to_host(head.sum(), "spg.superedges"))
+    by_sedg = _Segments(seg, n_sedg, presorted=True)
     cnt = by_sedg.lengths
     denom = torch.clamp(cnt, min=1).to(torch.float32)
     means, stds, norm2 = [], [], 0.0
@@ -162,26 +164,33 @@ def compute_sp_graph_device(xyz, d_max: float, in_component, labels,
     idx = torch.as_tensor(idx_adj, device=device).to(torch.int64)
     in_comp = torch.as_tensor(in_comp_h, device=device)
 
-    u, v, cu, cv, head = _sort_support_edges(idx, in_comp, xyz_d, d_max)
-    com_src, com_tgt, dmean, dstd, dnorm, _ = _superedge_stats(
-        xyz_d, u, v, cu, cv, head)
-    cent, length, surface, volume = _component_stats_device(xyz_d, in_comp,
-                                                            n_com)
-    has_labels = labels is not None and np.size(labels) > 1
-    hist = None
-    if has_labels:
-        lab = np.asarray(labels)
-        is_hist = lab.ndim > 1 and lab.shape[1] > 1
-        hist = _label_hist_device(
-            in_comp, torch.as_tensor(lab.astype(np.int64), device=device),
-            n_com, lab.shape[1] if is_hist else n_labels + 1, is_hist)
+    with tracing.span("spgt.spg.cross_edges"):
+        u, v, cu, cv, head = _sort_support_edges(idx, in_comp, xyz_d, d_max)
+    with tracing.span("spgt.spg.superedges"):
+        com_src, com_tgt, dmean, dstd, dnorm, _ = _superedge_stats(
+            xyz_d, u, v, cu, cv, head)
+    with tracing.span("spgt.spg.components"):
+        cent, length, surface, volume = _component_stats_device(
+            xyz_d, in_comp, n_com)
+        has_labels = labels is not None and np.size(labels) > 1
+        hist = None
+        if has_labels:
+            lab = np.asarray(labels)
+            is_hist = lab.ndim > 1 and lab.shape[1] > 1
+            hist = _label_hist_device(
+                in_comp, torch.as_tensor(lab.astype(np.int64), device=device),
+                n_com, lab.shape[1] if is_hist else n_labels + 1, is_hist)
 
-    cent = cent.cpu().numpy()
-    length = length.cpu().numpy().astype(np.float64)
-    surface = surface.cpu().numpy().astype(np.float64)
-    volume = volume.cpu().numpy().astype(np.float64)
-    cs = com_src.cpu().numpy()
-    ct = com_tgt.cpu().numpy()
+    with tracing.span("spgt.spg.fetch"):
+        cent, length, surface, volume, cs, ct, dmean, dstd, dnorm = (
+            tracing.to_host(t, "spg.fetch").numpy()
+            for t in (cent, length, surface, volume, com_src, com_tgt, dmean,
+                      dstd, dnorm))
+        if has_labels:
+            hist = tracing.to_host(hist, "spg.fetch").numpy()
+    length = length.astype(np.float64)
+    surface = surface.astype(np.float64)
+    volume = volume.astype(np.float64)
     counts = np.bincount(in_comp_h, minlength=n_com)
     eps = 1e-6
     return {
@@ -191,13 +200,12 @@ def compute_sp_graph_device(xyz, d_max: float, in_component, labels,
         "sp_surface": surface.astype(np.float32)[:, None],
         "sp_volume": volume.astype(np.float32)[:, None],
         "sp_point_count": counts.astype(np.uint64)[:, None],
-        "sp_labels": (hist.cpu().numpy().astype(np.uint32) if has_labels
-                      else []),
+        "sp_labels": (hist.astype(np.uint32) if has_labels else []),
         "source": cs.astype(np.uint32)[:, None],
         "target": ct.astype(np.uint32)[:, None],
-        "se_delta_mean": dmean.cpu().numpy().astype(np.float32),
-        "se_delta_std": dstd.cpu().numpy().astype(np.float32),
-        "se_delta_norm": dnorm.cpu().numpy().astype(np.float32)[:, None],
+        "se_delta_mean": dmean.astype(np.float32),
+        "se_delta_std": dstd.astype(np.float32),
+        "se_delta_norm": dnorm.astype(np.float32)[:, None],
         "se_delta_centroid": (cent[cs] - cent[ct]).astype(np.float32),
         "se_length_ratio": (length[cs] / (length[ct] + eps)).astype(
             np.float32)[:, None],

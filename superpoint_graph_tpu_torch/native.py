@@ -16,7 +16,8 @@ back to Python: the plain versions (`ops/voxel.py::prune_plain`,
 `ops/cutpursuit.py::greedy_matching_plain`, `ops/geof.py`, the exact solver
 `ops/cutpursuit.py::cutpursuit`) are what the tests hold the library to.
 Each function counts its calls in `<function>.calls`, so a run can show that
-its path went through the library.
+its path went through the library, and is the span `spgt.native.<function>`
+when tracing is on (`utils/tracing.py`).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import functools
 import numpy as np
 
 from .ops import _build
+from .utils import tracing
 
 _P = ctypes.POINTER
 _u8, _u32, _u64 = ctypes.c_uint8, ctypes.c_uint32, ctypes.c_uint64
@@ -62,10 +64,15 @@ def _ptr(a: np.ndarray, ctype):
 
 
 def _counted(fn):
+    """fn counting its calls in `.calls`, each the span
+    `spgt.native.<fn>`."""
+    name = "spgt.native." + fn.__name__
+
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         wrapper.calls += 1
-        return fn(*args, **kwargs)
+        with tracing.span(name):
+            return fn(*args, **kwargs)
 
     wrapper.calls = 0
     return wrapper

@@ -34,9 +34,10 @@ the rows themselves.
 
 The loop runs on the host: one device-to-host read per CC round ("did a
 label change") and one per outer iteration ("did the energy improve"), which
-LAST_SOLVE_STATS counts. Every float segment sum runs in a fixed order
-(`_Segments`), so two solves of one input on one device give the same
-labels (the JAX solver is deterministic on its TPU).
+LAST_SOLVE_STATS counts (each a `utils/tracing.to_host`). Every float
+segment sum runs in a fixed order (`_Segments`), so two solves of one input
+on one device give the same labels (the JAX solver is deterministic on its
+TPU).
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from ..device import card_unless
+from ..utils import tracing
 from .components import connected_components, group_components
 from .cutpursuit import _densify_first_occurrence, merge_regions
 
@@ -228,7 +230,7 @@ def solve(f, src, tgt, w, nw, reg, weight_decay=1.0, *, pad_rows: int = 0,
     def read(t):
         nonlocal reads
         reads += 1
-        return bool(t)
+        return bool(tracing.to_host(t, "cp.solve.loop"))
 
     def energy_of(comp, mean):
         fid = (nw * ((f - mean[comp[rows]]) ** 2).sum(1)).sum()
@@ -338,7 +340,8 @@ def solve(f, src, tgt, w, nw, reg, weight_decay=1.0, *, pad_rows: int = 0,
                 0, comp, new_comp, "amin")
             saturated = _seg_any((hi == lo)[comp], new_comp, n)
             comp, by_comp, energy = new_comp, by_new, new_energy
-    energy = float(energy)
+    energy = float(tracing.to_host(energy, "cp.solve.energy"))
+    tracing.count("cp.solve_iters", it)
     return comp, {"iters": it, "cc_rounds": ccr, "cc_rounds_max": ccr_max,
                   "cc_capped": capped, "energy": energy,
                   "host_syncs": reads + 1}
@@ -421,7 +424,8 @@ def cutpursuit_band_device(f_dev, idx_adj_dev, d2_adj_dev, xyz, n: int,
                         float(reg_strength), weight_decay, pad_rows=pad,
                         **solver_kw)
     LAST_SOLVE_STATS.update(n_pad=n + pad, d=int(f_p.shape[1]), **stats)
-    return _densify_first_occurrence(comp[inv].cpu().numpy())
+    return _densify_first_occurrence(
+        tracing.to_host(comp[inv], "cp.solve.labels").numpy())
 
 
 def cutpursuit_band(features, source, target, edge_weight, reg_strength,
@@ -459,7 +463,8 @@ def cutpursuit_band(features, source, target, edge_weight, reg_strength,
                         float(reg_strength), weight_decay, pad_rows=pad,
                         **solver_kw)
     LAST_SOLVE_STATS.update(n_pad=n + pad, d=int(f.shape[1]), **stats)
-    in_comp = _densify_first_occurrence(comp.cpu().numpy()[inv])
+    in_comp = _densify_first_occurrence(
+        tracing.to_host(comp, "cp.solve.labels").numpy()[inv])
     if merge:
         in_comp = merge_regions(f, nw_h, in_comp, src, tgt, w,
                                 float(reg_strength))

@@ -18,12 +18,12 @@ force (`knn`); above it the multi-level sorted-cell search (`knn_bigcloud`).
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..device import card_unless
+from ..utils import tracing
+from ..utils.tracing import stage
 
 BIGCLOUD_THRESHOLD = 300_000  # points (superpoint_graph_tpu/ops/knn.py:963)
 _SPARE = 8  # extra candidates re-ranked exactly: covers f32 near-ties
@@ -143,7 +143,8 @@ def _sample_knn_radius(xyz, k: int, sample: int = 1024):
     sel = np.random.RandomState(0).choice(n, size=min(sample, n),
                                           replace=False)
     _, d2 = knn_vs_db(xyz, torch.as_tensor(sel, device=xyz.device), k)
-    return np.sqrt(np.maximum(d2[:, k - 1].cpu().numpy(), 0.0))
+    return np.sqrt(np.maximum(
+        tracing.to_host(d2[:, k - 1], "knn.radius").numpy(), 0.0))
 
 
 def _level_sort(xyz, mins, h: float):
@@ -153,7 +154,7 @@ def _level_sort(xyz, mins, h: float):
     cells [n, 3] in input order, key dims (Dx, Dy, Dz))."""
     cells = torch.floor((xyz - mins) / torch.tensor(
         h, dtype=xyz.dtype, device=xyz.device)).to(torch.int64) + 1
-    dims = (cells.max(0).values + 2).tolist()
+    dims = tracing.to_host(cells.max(0).values + 2, "knn.cells").tolist()
     key = (cells[:, 0] * dims[1] + cells[:, 1]) * dims[2] + cells[:, 2]
     keys_s, order = torch.sort(key, stable=True)
     return keys_s, order, cells, dims
@@ -271,16 +272,15 @@ def knn_bigcloud(xyz: torch.Tensor, k: int):
     dev = xyz.device
     t_stage = {"radius_sample": 0.0, "sort_and_windows": 0.0,
                "device_search": 0.0, "check_and_fallback": 0.0}
-    t0 = time.perf_counter()
-    mins, maxs = xyz.min(0).values, xyz.max(0).values
-    extent = float((maxs - mins).max())
-    rk = _sample_knn_radius(xyz, k)
-    ladder = [max(float(np.quantile(rk, q)) * m, 1e-6)
-              for q, m in LEVEL_QUANTILES]
-    for _ in range(N_EXTRA_LEVELS):
-        ladder.append(ladder[-1] * EXTRA_LEVEL_FACTOR)
-    ladder = sorted(set(ladder))
-    t_stage["radius_sample"] = time.perf_counter() - t0
+    with stage("spgt.knn.radius", t_stage, "radius_sample"):
+        mins, maxs = xyz.min(0).values, xyz.max(0).values
+        extent = float(tracing.to_host((maxs - mins).max(), "knn.extent"))
+        rk = _sample_knn_radius(xyz, k)
+        ladder = [max(float(np.quantile(rk, q)) * m, 1e-6)
+                  for q, m in LEVEL_QUANTILES]
+        for _ in range(N_EXTRA_LEVELS):
+            ladder.append(ladder[-1] * EXTRA_LEVEL_FACTOR)
+        ladder = sorted(set(ladder))
 
     out_i = torch.full((n, k), n, dtype=torch.int64, device=dev)
     out_d = torch.full((n, k), float("inf"), dtype=torch.float32, device=dev)
@@ -290,68 +290,70 @@ def knn_bigcloud(xyz: torch.Tensor, k: int):
         P = len(pending)
         if P == 0 or (level_stats and P * n < LEVEL_MIN_WORK):
             break
-        t0 = time.perf_counter()
-        # level 0: blocks of BLOCK_Q; the pending queries of a later level
-        # come in runs that wrap from one cell strip's end to the next
-        # strip's start (a window across a whole strip, truncated), so
-        # blocks of 8 (the JAX ladder keeps BLOCK_Q while more than 65,536
-        # are pending: at a 12.8M-voxel station ~76,000 queries then failed
-        # every level and went to brute force)
-        bq, cap = (BLOCK_Q, WINDOW_CAP) if P == n else (8, 4 * WINDOW_CAP)
-        # at most 2^20 cells an axis, so the three-axis key fits an int64
-        # (JAX clamps at 32,000 for its fused int32 xy key)
-        h = max(h, extent / float(1 << 20))
-        keys_s, order, cells, dims = _level_sort(xyz, mins, h)
-        qpos = (torch.arange(n, device=dev) if P == n
-                else _pending_positions(order, pending))
-        m = -(-P // bq)
-        # the last block is filled with its last query (rows rewritten with
-        # the same values)
-        flat = torch.minimum(torch.arange(m * bq, device=dev),
-                             torch.tensor(P - 1, device=dev))
-        qpos2d = qpos[flat].reshape(m, bq)
-        starts, spans = _level_windows(keys_s, qpos2d[:, 0], qpos2d[:, -1],
-                                       dims)
-        need = spans.max(1).values.cpu().numpy()
-        t_stage["sort_and_windows"] += time.perf_counter() - t0
+        with stage("spgt.knn.sort", t_stage, "sort_and_windows"):
+            # level 0: blocks of BLOCK_Q; the pending queries of a later
+            # level come in runs that wrap from one cell strip's end to the
+            # next strip's start (a window across a whole strip,
+            # truncated), so blocks of 8 (the JAX ladder keeps BLOCK_Q while
+            # more than 65,536 are pending: at a 12.8M-voxel station
+            # ~76,000 queries then failed every level and went to brute
+            # force)
+            bq, cap = ((BLOCK_Q, WINDOW_CAP) if P == n
+                       else (8, 4 * WINDOW_CAP))
+            # at most 2^20 cells an axis, so the three-axis key fits an int64
+            # (JAX clamps at 32,000 for its fused int32 xy key)
+            h = max(h, extent / float(1 << 20))
+            keys_s, order, cells, dims = _level_sort(xyz, mins, h)
+            qpos = (torch.arange(n, device=dev) if P == n
+                    else _pending_positions(order, pending))
+            m = -(-P // bq)
+            # the last block is filled with its last query (rows rewritten
+            # with the same values)
+            flat = torch.minimum(torch.arange(m * bq, device=dev),
+                                 torch.tensor(P - 1, device=dev))
+            qpos2d = qpos[flat].reshape(m, bq)
+            starts, spans = _level_windows(keys_s, qpos2d[:, 0],
+                                           qpos2d[:, -1], dims)
+            need = tracing.to_host(spans.max(1).values,
+                                   "knn.windows").numpy()
 
-        t0 = time.perf_counter()
-        xs, cs = xyz[order], cells[order]
-        bad = torch.zeros(m * bq, dtype=torch.bool, device=dev)
-        # exactness margin for the f32 cell arithmetic: a few ulps of the
-        # extent
-        h_cert = h * (1.0 - 1e-5) - 4.8e-7 * extent
-        cap = min(cap, n)
-        trunc = np.flatnonzero(need > cap)
-        if len(trunc):
-            bad.view(m, bq)[torch.as_tensor(trunc, device=dev)] = True
-        lo = 0
-        for size in _bucket_sizes(cap):
-            blk_all = np.flatnonzero((need > lo) & (np.minimum(need, cap)
-                                                    <= size))
-            lo = size
-            step = max(1, TILE_ELEMS // (bq * 9 * size))
-            for c0 in range(0, len(blk_all), step):
-                blk = torch.as_tensor(blk_all[c0:c0 + step], device=dev)
-                qp = qpos2d[blk]
-                ids, d2 = _knn_cells_q(xyz, xs, cs, order, qp, starts[blk],
-                                       spans[blk], k, size, dims[1])
-                rows = order[qp.reshape(-1)]
-                out_i[rows], out_d[rows] = ids, d2
-                fail = ~(d2[:, k - 1] <= h_cert * h_cert)
-                bad.view(m, bq)[blk] |= fail.view(len(blk), bq)
-        bad_pos = qpos2d.reshape(-1)[bad]
-        pending = torch.unique(order[bad_pos])
-        level_stats.append({"h": round(h, 5), "queries": int(P),
-                            "bad": int(len(pending))})
-        t_stage["device_search"] += time.perf_counter() - t0
+        with stage("spgt.knn.search", t_stage, "device_search"):
+            xs, cs = xyz[order], cells[order]
+            bad = torch.zeros(m * bq, dtype=torch.bool, device=dev)
+            # exactness margin for the f32 cell arithmetic: a few ulps of
+            # the extent
+            h_cert = h * (1.0 - 1e-5) - 4.8e-7 * extent
+            cap = min(cap, n)
+            trunc = np.flatnonzero(need > cap)
+            if len(trunc):
+                bad.view(m, bq)[torch.as_tensor(trunc, device=dev)] = True
+            lo = 0
+            for size in _bucket_sizes(cap):
+                blk_all = np.flatnonzero((need > lo)
+                                         & (np.minimum(need, cap) <= size))
+                lo = size
+                step = max(1, TILE_ELEMS // (bq * 9 * size))
+                for c0 in range(0, len(blk_all), step):
+                    blk = torch.as_tensor(blk_all[c0:c0 + step],
+                                          device=dev)
+                    qp = qpos2d[blk]
+                    ids, d2 = _knn_cells_q(xyz, xs, cs, order, qp,
+                                           starts[blk], spans[blk], k, size,
+                                           dims[1])
+                    rows = order[qp.reshape(-1)]
+                    out_i[rows], out_d[rows] = ids, d2
+                    fail = ~(d2[:, k - 1] <= h_cert * h_cert)
+                    bad.view(m, bq)[blk] |= fail.view(len(blk), bq)
+            bad_pos = qpos2d.reshape(-1)[bad]
+            pending = torch.unique(order[bad_pos])
+            level_stats.append({"h": round(h, 5), "queries": int(P),
+                                "bad": int(len(pending))})
 
-    t0 = time.perf_counter()
-    n_bad = len(pending)
-    for s in range(0, n_bad, FALLBACK_QUERY_CHUNK):
-        ids = pending[s:s + FALLBACK_QUERY_CHUNK]
-        out_i[ids], out_d[ids] = knn_vs_db(xyz, ids, k, direct=True)
-    t_stage["check_and_fallback"] = time.perf_counter() - t0
+    with stage("spgt.knn.fallback", t_stage, "check_and_fallback"):
+        n_bad = len(pending)
+        for s in range(0, n_bad, FALLBACK_QUERY_CHUNK):
+            ids = pending[s:s + FALLBACK_QUERY_CHUNK]
+            out_i[ids], out_d[ids] = knn_vs_db(xyz, ids, k, direct=True)
     info = {"h": ladder[-1], "levels": level_stats, "n_fallback": int(n_bad),
             "window": WINDOW_CAP, "n_blocks": -(-n // BLOCK_Q),
             "stage_seconds": {k_: round(v, 3) for k_, v in t_stage.items()}}
@@ -403,8 +405,9 @@ def compute_graph_nn_2(xyz: np.ndarray, k_nn_adj: int, k_nn_geof: int,
         idx, d2, _ = knn_bigcloud(xyz_t, k_nn_geof)
     else:
         idx, d2 = knn(xyz_t, k_nn_geof)
-    idx_adj = idx[:, :k_nn_adj].cpu().numpy()
-    dist = np.sqrt(np.maximum(d2[:, :k_nn_adj].cpu().numpy(), 0.0))
+    idx_adj = tracing.to_host(idx[:, :k_nn_adj], "knn.adj").numpy()
+    dist = np.sqrt(np.maximum(
+        tracing.to_host(d2[:, :k_nn_adj], "knn.adj").numpy(), 0.0))
     graph = {
         "is_nn": True,
         "source": np.repeat(np.arange(n, dtype=np.uint32), k_nn_adj),

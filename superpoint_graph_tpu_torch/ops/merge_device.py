@@ -1,8 +1,9 @@
 """The cut-pursuit merge step with its edge-to-region reduction on the device.
 
 Port of superpoint_graph_tpu/ops/merge_device.py (`pair_stats`,
-`merge_regions_device`, `_dedup_pairs`, `_compact_cross`, `_compact_pairs`,
-`LAST_MERGE_STATS`). The merge step's only O(edges)
+`merge_regions_device`, `_dedup_pairs`, `_compact_cross`, `_compact_pairs`;
+the JAX `LAST_MERGE_STATS` seconds are the stages `spgt.cp.merge.reduce`
+and `spgt.cp.merge.rounds`). The merge step's only O(edges)
 work is turning the edge list into region statistics: per-region weighted
 feature sums S and masses m, and the adjacent region pairs with their summed
 cut weights. That runs on the device; only the O(regions + pairs) results
@@ -20,17 +21,14 @@ then a 1-D `segment_reduce`, `cutpursuit_band._Segments`), never a float
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from ..utils import tracing
+from ..utils.tracing import stage
 from .cutpursuit import merge_rounds
 from .cutpursuit_band import _Segments
 
-# cumulative split of merge_regions_device time since the caller's last
-# reset: device reduction with its fetch, host merge rounds
-LAST_MERGE_STATS = {"reduce": 0.0, "rounds": 0.0}
 
 def _compact_cross(comp, src, tgt, w):
     """The cross-region edges (comp[src] != comp[tgt], w > 0) as (ca, cb,
@@ -57,7 +55,8 @@ def _compact_pairs(key_s, w_s, new, cap: int):
     if len(key_s) == 0:
         return key_s, key_s, w_s
     pid = torch.cumsum(new.to(torch.int64), 0) - 1
-    pw = _Segments(pid, int(pid[-1]) + 1, presorted=True).sum(w_s)
+    n_pairs = int(tracing.to_host(pid[-1], "merge.pairs")) + 1
+    pw = _Segments(pid, n_pairs, presorted=True).sum(w_s)
     key = key_s[new]
     return key // cap, key % cap, pw
 
@@ -74,23 +73,26 @@ def pair_stats(f, nw, comp, src, tgt, w, n_comp: int):
     cap = max(n_comp, 2)
     key_s, w_s, new = _dedup_pairs(*_compact_cross(comp, src, tgt, w), cap)
     pa, pb, pw = _compact_pairs(key_s, w_s, new, cap)
-    s = s.double().cpu().numpy()
-    return (s[:, :-1], s[:, -1], pa.cpu().numpy(), pb.cpu().numpy(),
-            pw.double().cpu().numpy())
+    s = tracing.to_host(s.double(), "merge.sums").numpy()
+    return (s[:, :-1], s[:, -1],
+            tracing.to_host(pa, "merge.pairs").numpy(),
+            tracing.to_host(pb, "merge.pairs").numpy(),
+            tracing.to_host(pw.double(), "merge.pairs").numpy())
 
 
 def merge_regions_device(f, nw, comp, src, tgt, w, n_comp: int, reg: float,
-                         max_rounds: int = 10) -> np.ndarray:
+                         max_rounds: int = 10, times: dict | None = None
+                         ) -> np.ndarray:
     """The merge step with the edge reduction on the device: the greedy
     rounds and energy delta of `ops/cutpursuit.py::merge_regions`. Returns
     the root of every region [n_comp] (numpy); the caller applies it to its
-    own labels."""
-    t0 = time.perf_counter()
-    S, m, pa, pb, pw = pair_stats(f, nw, comp, src, tgt, w, n_comp)
-    t1 = time.perf_counter()
-    LAST_MERGE_STATS["reduce"] += t1 - t0
+    own labels. `times`: the seconds of the device reduction with its
+    fetch and of the host rounds are added to its "merge_reduce" and
+    "merge_rounds"."""
+    with stage("spgt.cp.merge.reduce", times, "merge_reduce"):
+        S, m, pa, pb, pw = pair_stats(f, nw, comp, src, tgt, w, n_comp)
     if len(pa) == 0:
         return np.arange(n_comp)
-    out = merge_rounds(S, m, pa, pb, pw, n_comp, reg, max_rounds=max_rounds)
-    LAST_MERGE_STATS["rounds"] += time.perf_counter() - t1
-    return out
+    with stage("spgt.cp.merge.rounds", times, "merge_rounds"):
+        return merge_rounds(S, m, pa, pb, pw, n_comp, reg,
+                            max_rounds=max_rounds)

@@ -24,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 _U = 2.0 ** -24  # unit roundoff of float32
 # thr = fl(best * NN1_REL + (margin + K) - fl(|q'|^2)) in the kernel; covers
 # the direct form's relative rounding (5u) and the threshold's own (2u)
@@ -152,8 +154,9 @@ def nn1_cuda(db: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     db = db.contiguous()
     queries = queries.contiguous()
     n, m = len(queries), len(db)
-    centre, shift, margin_shift = nn1_frame(torch.stack([
-        db.amin(0), db.amax(0), queries.amin(0), queries.amax(0)]).cpu())
+    centre, shift, margin_shift = nn1_frame(tracing.to_host(torch.stack([
+        db.amin(0), db.amax(0), queries.amin(0), queries.amax(0)]),
+        "nn1.frame"))
     dev = queries.device
     with torch.cuda.device(dev):
         splits, tiles, m_pad = nn1_plan(n, m)
@@ -183,10 +186,13 @@ def nn1(db: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     _check(db, queries)
     if len(db) == 0 or len(queries) == 0:
         return torch.zeros(0, dtype=torch.int64, device=queries.device)
-    if queries.device.type == "cpu":
-        return nn1_plain(db, queries)
-    if queries.device.type == "cuda":
-        return nn1_cuda(db, queries)
+    tracing.count("nn1.calls")
+    tracing.count("nn1.pairs", len(db) * len(queries))
+    with tracing.span("spgt.nn1"):
+        if queries.device.type == "cpu":
+            return nn1_plain(db, queries)
+        if queries.device.type == "cuda":
+            return nn1_cuda(db, queries)
     raise ValueError(f"nn1 runs on cpu or cuda tensors, not {queries.device}")
 
 

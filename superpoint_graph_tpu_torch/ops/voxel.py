@@ -20,6 +20,7 @@ import torch
 
 from .. import native
 from ..device import card_unless
+from ..utils import tracing
 
 # above this many rows `prune` runs on the host library (the JAX package's
 # threshold, superpoint_graph_tpu/ops/voxel.py:118-122, set for the
@@ -46,7 +47,7 @@ def voxel_prune(xyz: torch.Tensor, voxel_size: float, rgb: torch.Tensor,
     dims = bins.max(0).values + 1
     key = (bins[:, 0] * dims[1] + bins[:, 1]) * dims[2] + bins[:, 2]
     _, inv = torch.unique(key, return_inverse=True)
-    m = int(inv.max()) + 1
+    m = int(tracing.to_host(inv.max(), "prune.voxels")) + 1
     # first-occurrence order: rank key-ordered voxels by their lowest point
     first = torch.full((m,), n, dtype=torch.int64, device=xyz.device)
     first.scatter_reduce_(0, inv, torch.arange(n, device=xyz.device), "amin")
@@ -161,8 +162,11 @@ def prune(xyz, voxel_size, rgb, labels, objects, n_labels, n_objects,
     out = voxel_prune(xyz_t, float(voxel_size), rgb_t, opt(labels),
                       opt(objects), int(n_labels), int(n_objects))
     return (
-        out["xyz"].cpu().numpy(),
-        out["rgb"].to(torch.uint8).cpu().numpy(),  # truncates like the C++ cast
-        out["label_hist"].cpu().numpy().astype(np.uint32),
-        out["object_hist"].cpu().numpy().astype(np.uint32),
+        tracing.to_host(out["xyz"], "prune.out").numpy(),
+        # truncates like the C++ cast
+        tracing.to_host(out["rgb"].to(torch.uint8), "prune.out").numpy(),
+        tracing.to_host(out["label_hist"], "prune.out").numpy().astype(
+            np.uint32),
+        tracing.to_host(out["object_hist"], "prune.out").numpy().astype(
+            np.uint32),
     )

@@ -22,7 +22,6 @@ Cut pursuit (`PartitionConfig.cp_backend`):
 from __future__ import annotations
 
 import dataclasses
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -41,6 +40,8 @@ from .ops.geof import compute_geof
 from . import pipeline_big
 from .ops.knn import compute_graph_nn_2
 from .pipeline_big import CHUNKED_CP_THRESHOLD
+from .utils import tracing
+from .utils.tracing import stage
 
 CP_BACKENDS = ("device", "exact")
 
@@ -82,13 +83,16 @@ def partition_features(xyz: np.ndarray, cfg: PartitionConfig, device=None,
     `return_device`, also the device tables {"idx", "d2", "geof"} for the
     device cut pursuit."""
     device = card_unless(device)
-    graph_nn, target_geof, *dev = compute_graph_nn_2(
-        xyz, cfg.k_nn_adj, cfg.k_nn_geof, device=device,
-        return_device=return_device)
-    xyz_t = torch.as_tensor(np.ascontiguousarray(xyz, np.float32),
-                            device=device)
-    geof_t = compute_geof(xyz_t, target_geof)
-    geof = geof_t.cpu().numpy()
+    with tracing.span("spgt.features.knn"):
+        graph_nn, target_geof, *dev = compute_graph_nn_2(
+            xyz, cfg.k_nn_adj, cfg.k_nn_geof, device=device,
+            return_device=return_device)
+    with tracing.span("spgt.features.geof"):
+        xyz_t = torch.as_tensor(np.ascontiguousarray(xyz, np.float32),
+                                device=device)
+        geof_t = compute_geof(xyz_t, target_geof)
+    with tracing.span("spgt.features.fetch"):
+        geof = tracing.to_host(geof_t, "features.geof").numpy()
     if return_device:
         return graph_nn, geof, dict(dev[0], geof=geof_t)
     return graph_nn, geof
@@ -131,27 +135,30 @@ def _cutpursuit_device_path(xyz, rgb, graph_nn, dev, cfg: PartitionConfig):
     n = len(xyz)
     geof = dev["geof"]
     use_color = cfg.dataset == "s3dis" and rgb is not None and len(rgb) > 0
-    t0 = time.perf_counter()
-    f_dev = _assemble_features_device(
-        geof, torch.as_tensor(np.asarray(rgb, np.uint8), device=geof.device)
-        if use_color else None)
-    in_comp = cutpursuit_band_device(
-        f_dev, dev["idx"][:, :cfg.k_nn_adj], dev["d2"][:, :cfg.k_nn_adj],
-        np.asarray(xyz, np.float32), n, cfg.reg_strength,
-        lambda_edge_weight=cfg.lambda_edge_weight)
-    t1 = time.perf_counter()
-    features = assemble_partition_features(
-        geof.cpu().numpy(), rgb if use_color else None, cfg)
-    src = np.asarray(graph_nn["source"], np.int64)
-    tgt = np.asarray(graph_nn["target"], np.int64)
-    w = edge_weights(graph_nn["distances"], cfg.lambda_edge_weight)
-    in_comp = merge_regions(features, np.ones(n), in_comp, src, tgt, w,
-                            float(cfg.reg_strength))
-    if cfg.cp_cutoff > 0:
-        active = in_comp[src] == in_comp[tgt]
-        _, in_comp = native.connected_comp(n, src, tgt, active,
-                                           cfg.cp_cutoff)
-    times = {"solve": t1 - t0, "merge": time.perf_counter() - t1}
+    times = {}
+    with stage("spgt.cp.solve", times, "solve"):
+        f_dev = _assemble_features_device(
+            geof, torch.as_tensor(np.asarray(rgb, np.uint8),
+                                  device=geof.device)
+            if use_color else None)
+        in_comp = cutpursuit_band_device(
+            f_dev, dev["idx"][:, :cfg.k_nn_adj], dev["d2"][:, :cfg.k_nn_adj],
+            np.asarray(xyz, np.float32), n, cfg.reg_strength,
+            lambda_edge_weight=cfg.lambda_edge_weight)
+    with stage("spgt.cp.merge", times, "merge"):
+        features = assemble_partition_features(
+            tracing.to_host(geof, "cp.merge.geof").numpy(),
+            rgb if use_color else None, cfg)
+        src = np.asarray(graph_nn["source"], np.int64)
+        tgt = np.asarray(graph_nn["target"], np.int64)
+        w = edge_weights(graph_nn["distances"], cfg.lambda_edge_weight)
+        in_comp = merge_regions(features, np.ones(n), in_comp, src, tgt, w,
+                                float(cfg.reg_strength))
+        if cfg.cp_cutoff > 0:
+            with tracing.span("spgt.cp.cutoff"):
+                active = in_comp[src] == in_comp[tgt]
+                _, in_comp = native.connected_comp(n, src, tgt, active,
+                                                   cfg.cp_cutoff)
     return group_components(in_comp), in_comp.astype(np.int32), times
 
 
@@ -161,11 +168,12 @@ def prune_stage(xyz, rgb, labels, objects, n_labels, cfg, device):
     if cfg.voxel_width > 0:
         n_obj = (int(objects.max()) + 1
                  if objects is not None and np.size(objects) else 0)
-        xyz, rgb, labels, _ = voxel.prune(
-            xyz, cfg.voxel_width,
-            rgb if rgb is not None else np.zeros((len(xyz), 3), np.uint8),
-            labels, objects, n_labels, n_obj, device=device,
-        )
+        with tracing.span("spgt.features.prune"):
+            xyz, rgb, labels, _ = voxel.prune(
+                xyz, cfg.voxel_width,
+                rgb if rgb is not None else np.zeros((len(xyz), 3), np.uint8),
+                labels, objects, n_labels, n_obj, device=device,
+            )
     return xyz, rgb, labels
 
 
@@ -253,22 +261,28 @@ def partition_cloud(
     `pipeline_big.partition_cloud_big`'s, with its times."""
     _check_backend(cfg)
     device = card_unless(device)
-    t0 = time.perf_counter()
-    xyz, rgb, labels, graph_nn, geof, dev = _features_stage(
-        xyz, rgb, labels, objects, n_labels, cfg, device)
+    times = {}
+    with stage("spgt.features", times, "features") as features:
+        xyz, rgb, labels, graph_nn, geof, dev = _features_stage(
+            xyz, rgb, labels, objects, n_labels, cfg, device)
     if graph_nn is None:
         return _big(xyz, rgb, labels, n_labels, cfg, device,
-                    time.perf_counter() - t0)
-    times = {"features": time.perf_counter() - t0}
-    t0 = time.perf_counter()
-    components, in_component, sub = _partition_stage(
-        xyz, rgb, graph_nn, geof, dev, cfg)
-    times["partition"] = time.perf_counter() - t0
+                    features.seconds)
+    return _solve_and_spg(xyz, rgb, labels, n_labels, graph_nn, geof, dev,
+                          cfg, device, times)
+
+
+def _solve_and_spg(xyz, rgb, labels, n_labels, graph_nn, geof, dev, cfg,
+                   device, times) -> PartitionResult:
+    """Cut pursuit and superpoint graph of a featured cloud, their seconds
+    added to `times` ("partition", "partition.<sub-stage>", "spg")."""
+    with stage("spgt.cp", times, "partition"):
+        components, in_component, sub = _partition_stage(
+            xyz, rgb, graph_nn, geof, dev, cfg)
     times.update({f"partition.{k}": v for k, v in sub.items()})
-    t0 = time.perf_counter()
-    graph_sp = _spg_stage(xyz, labels, n_labels, graph_nn, in_component, cfg,
-                          device)
-    times["spg"] = time.perf_counter() - t0
+    with stage("spgt.spg", times, "spg"):
+        graph_sp = _spg_stage(xyz, labels, n_labels, graph_nn, in_component,
+                              cfg, device)
     return _result(xyz, rgb, labels, geof, graph_nn, components, in_component,
                    graph_sp, times)
 
@@ -286,29 +300,32 @@ def partition_clouds(clouds, cfg: PartitionConfig = PartitionConfig(),
     device = card_unless(device)
     clouds = list(clouds)
     results = []
+    # with tracing on, each cloud is a root span, its features stage run
+    # under it in the worker thread
+    roots = {}
 
-    def stage_a(args):
-        return _features_stage(*args, n_labels, cfg, device)
+    def stage_a(root, args):
+        with tracing.within(root):
+            return _features_stage(*args, n_labels, cfg, device)
+
+    def submit(pool, i):
+        roots[i] = tracing.detached("spgt.cloud", path="partition_clouds",
+                                    index=i)
+        return pool.submit(stage_a, roots[i], clouds[i])
 
     with ThreadPoolExecutor(max_workers=1) as pool:
-        fut = pool.submit(stage_a, clouds[0]) if clouds else None
+        fut = submit(pool, 0) if clouds else None
         for i in range(len(clouds)):
             xyz, rgb, labels, graph_nn, geof, dev = fut.result()
             if i + 1 < len(clouds):
-                fut = pool.submit(stage_a, clouds[i + 1])
-            if graph_nn is None:
-                results.append(_big(xyz, rgb, labels, n_labels, cfg, device,
-                                    0.0))
-                continue
-            t0 = time.perf_counter()
-            components, in_component, sub = _partition_stage(
-                xyz, rgb, graph_nn, geof, dev, cfg)
-            times = {"features": 0.0, "partition": time.perf_counter() - t0}
-            times.update({f"partition.{k}": v for k, v in sub.items()})
-            t0 = time.perf_counter()
-            graph_sp = _spg_stage(xyz, labels, n_labels, graph_nn,
-                                  in_component, cfg, device)
-            times["spg"] = time.perf_counter() - t0
-            results.append(_result(xyz, rgb, labels, geof, graph_nn,
-                                   components, in_component, graph_sp, times))
+                fut = submit(pool, i + 1)
+            with tracing.within(roots[i]):
+                if graph_nn is None:
+                    results.append(_big(xyz, rgb, labels, n_labels, cfg,
+                                        device, 0.0))
+                else:
+                    results.append(_solve_and_spg(
+                        xyz, rgb, labels, n_labels, graph_nn, geof, dev, cfg,
+                        device, {"features": 0.0}))
+            roots.pop(i).close()
     return results

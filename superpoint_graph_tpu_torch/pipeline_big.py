@@ -27,8 +27,6 @@ capped calls), the weights are f32, and the JAX pad rows of each window
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -40,14 +38,16 @@ from .ops.cutpursuit_band import (cutpursuit_band, morton_order,
                                   morton_perm_device, prep_chunk, solve)
 from .ops.geof import compute_geof
 from .ops.knn import knn_bigcloud
-from .ops.merge_device import LAST_MERGE_STATS, merge_regions_device
+from .ops.merge_device import merge_regions_device
+from .utils import tracing
+from .utils.tracing import stage
 
 # the last chunked_cutpursuit_device call's stage split: the JAX keys
 # (seconds: morton, prep, solve, chunk_merge, heal, group, host_edges,
-# merge_reduce, merge_rounds, other; n, n_chunks, solve_iters) plus, summed
-# over the windows, host_syncs and cc_capped, the largest cc_rounds_max,
-# the per-window host_syncs, and the heal's split (heal_reduce,
-# heal_rounds seconds; regions before and after)
+# merge_reduce, merge_rounds, other (the call's time outside its stages);
+# n, n_chunks, solve_iters) plus, summed over the windows, host_syncs and
+# cc_capped, the largest cc_rounds_max, the per-window host_syncs, and the
+# heal's split (heal_reduce, heal_rounds seconds; regions before and after)
 LAST_CP_STATS: dict = {}
 
 # above this many pruned voxels the partition goes through this module
@@ -116,81 +116,92 @@ def chunked_cutpursuit_device(f_dev, idx_adj_dev, d2_adj_dev, xyz,
     offset. Then the global heal over the full directed kNN list and
     `relabel_connected` with `cutoff`. Returns (components, in_component
     int32); the split is in LAST_CP_STATS."""
-    t_all0 = time.perf_counter()
+    with stage(None) as whole:
+        components, in_comp, st = _chunked_solve(
+            f_dev, idx_adj_dev, d2_adj_dev, xyz, reg_strength,
+            lambda_edge_weight, cutoff, chunk_points)
+    LAST_CP_STATS.clear()
+    LAST_CP_STATS.update(st, other=whole.self_s)
+    return components, in_comp.astype(np.int32)
+
+
+def _chunked_solve(f_dev, idx_adj_dev, d2_adj_dev, xyz, reg_strength,
+                   lambda_edge_weight, cutoff, chunk_points):
+    """The body of `chunked_cutpursuit_device`: (components, in_component,
+    its LAST_CP_STATS but "other")."""
     dev = f_dev.device
     n = int(f_dev.shape[0])
     chunk_pad, _, _, windows = chunk_geometry(n, chunk_points)
+    # the stages' seconds, LAST_CP_STATS's keys; the heal's merge apart
+    st = dict.fromkeys(("morton", "prep", "solve", "chunk_merge", "heal",
+                        "group", "host_edges", "merge_reduce",
+                        "merge_rounds"), 0.0)
+    heal = {"merge_reduce": 0.0, "merge_rounds": 0.0}
 
-    t0 = time.perf_counter()
-    perm = morton_perm_device(xyz[:n])
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(n, device=dev)
-    perm_h = perm.cpu().numpy()
-    dmean = _global_dmean(d2_adj_dev)
-    t_morton = time.perf_counter() - t0
+    with stage("spgt.cp.morton", st, "morton"):
+        perm = morton_perm_device(xyz[:n])
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(n, device=dev)
+        perm_h = tracing.to_host(perm, "cp.morton").numpy()
+        dmean = _global_dmean(d2_adj_dev)
 
     in_comp = np.empty(n, np.int64)
     base = 0
-    t_prep = t_solve = t_merge = 0.0
     iters, syncs, capped, ccr_max = [], [], 0, 0
-    LAST_MERGE_STATS.update(reduce=0.0, rounds=0.0)
-    for s, e, x0, x1 in windows:
-        t0 = time.perf_counter()
-        f_rows, (src, tgt, w), (esrc, etgt, ew) = prep_chunk(
-            f_dev, idx_adj_dev, d2_adj_dev, perm, inv, x0, x1, dmean,
-            lambda_edge_weight)
-        nw = torch.ones(x1 - x0, device=dev)
-        t1 = time.perf_counter()
-        t_prep += t1 - t0
-        comp, st = solve(f_rows, src, tgt, w, nw, float(reg_strength),
-                         _WEIGHT_DECAY, pad_rows=chunk_pad - (x1 - x0),
-                         **CHUNK_SOLVER)
-        comp_core = comp[s - x0:e - x0].cpu().numpy()
-        t2 = time.perf_counter()
-        t_solve += t2 - t1
-        iters.append(st["iters"])
-        syncs.append(st["host_syncs"])
-        capped += st["cc_capped"]
-        ccr_max = max(ccr_max, st["cc_rounds_max"])
-        label = merge_regions_device(f_rows, nw, comp, esrc, etgt, ew,
-                                     x1 - x0, float(reg_strength))
-        core = _densify_first_occurrence(label[comp_core])
-        in_comp[perm_h[s:e]] = base + core
-        base += int(core.max()) + 1 if len(core) else 0
-        t_merge += time.perf_counter() - t2
+    for c, (s, e, x0, x1) in enumerate(windows):
+        with tracing.span("spgt.cp.window", index=c):
+            with stage("spgt.cp.prep", st, "prep"):
+                f_rows, (src, tgt, w), (esrc, etgt, ew) = prep_chunk(
+                    f_dev, idx_adj_dev, d2_adj_dev, perm, inv, x0, x1, dmean,
+                    lambda_edge_weight)
+                nw = torch.ones(x1 - x0, device=dev)
+            with stage("spgt.cp.solve", st, "solve"):
+                comp, ws = solve(f_rows, src, tgt, w, nw,
+                                 float(reg_strength), _WEIGHT_DECAY,
+                                 pad_rows=chunk_pad - (x1 - x0),
+                                 **CHUNK_SOLVER)
+                comp_core = tracing.to_host(comp[s - x0:e - x0],
+                                            "cp.window.labels").numpy()
+            with stage("spgt.cp.window_merge", st, "chunk_merge"):
+                iters.append(ws["iters"])
+                syncs.append(ws["host_syncs"])
+                capped += ws["cc_capped"]
+                ccr_max = max(ccr_max, ws["cc_rounds_max"])
+                label = merge_regions_device(f_rows, nw, comp, esrc, etgt,
+                                             ew, x1 - x0, float(reg_strength),
+                                             times=st)
+                core = _densify_first_occurrence(label[comp_core])
+                in_comp[perm_h[s:e]] = base + core
+                base += int(core.max()) + 1 if len(core) else 0
+    tracing.count("cp.windows", len(windows))
 
-    t0 = time.perf_counter()
-    chunk_stats = dict(LAST_MERGE_STATS)
-    gsrc, gtgt, gw = _knn_edges_device(idx_adj_dev, d2_adj_dev, dmean,
-                                       lambda_edge_weight)
-    label = merge_regions_device(
-        f_dev, torch.ones(n, device=dev), torch.as_tensor(in_comp, device=dev),
-        gsrc, gtgt, gw, base, float(reg_strength))
-    in_comp = _densify_first_occurrence(label[in_comp]).astype(np.int64)
-    t_heal = time.perf_counter() - t0
+    with stage("spgt.cp.heal", st, "heal"):
+        gsrc, gtgt, gw = _knn_edges_device(idx_adj_dev, d2_adj_dev, dmean,
+                                           lambda_edge_weight)
+        label = merge_regions_device(
+            f_dev, torch.ones(n, device=dev),
+            torch.as_tensor(in_comp, device=dev), gsrc, gtgt, gw, base,
+            float(reg_strength), times=heal)
+        in_comp = _densify_first_occurrence(label[in_comp]).astype(np.int64)
 
-    t0 = time.perf_counter()
-    k = idx_adj_dev.shape[1]
-    src_h = np.repeat(np.arange(n, dtype=np.int64), k)
-    tgt_h = idx_adj_dev.reshape(-1).cpu().numpy().astype(np.int64)
-    t_edges = time.perf_counter() - t0
-    components, in_comp = relabel_connected(n, src_h, tgt_h, in_comp, cutoff)
-    t_group = time.perf_counter() - t0
-    timed = t_morton + t_prep + t_solve + t_merge + t_heal + t_group
-    LAST_CP_STATS.clear()
-    LAST_CP_STATS.update(
-        n=n, n_chunks=len(windows), morton=t_morton, solve_iters=iters,
-        prep=t_prep, solve=t_solve, chunk_merge=t_merge, heal=t_heal,
-        group=t_group, host_edges=t_edges,
-        merge_reduce=LAST_MERGE_STATS["reduce"],
-        merge_rounds=LAST_MERGE_STATS["rounds"],
-        heal_reduce=LAST_MERGE_STATS["reduce"] - chunk_stats["reduce"],
-        heal_rounds=LAST_MERGE_STATS["rounds"] - chunk_stats["rounds"],
+    with stage("spgt.cp.relabel", st, "group"):
+        with stage("spgt.cp.relabel.edges", st, "host_edges"):
+            k = idx_adj_dev.shape[1]
+            src_h = np.repeat(np.arange(n, dtype=np.int64), k)
+            tgt_h = tracing.to_host(idx_adj_dev.reshape(-1),
+                                    "cp.relabel.edges").numpy().astype(
+                                        np.int64)
+        components, in_comp = relabel_connected(n, src_h, tgt_h, in_comp,
+                                                cutoff)
+    st.update(
+        n=n, n_chunks=len(windows), solve_iters=iters,
+        merge_reduce=st["merge_reduce"] + heal["merge_reduce"],
+        merge_rounds=st["merge_rounds"] + heal["merge_rounds"],
+        heal_reduce=heal["merge_reduce"], heal_rounds=heal["merge_rounds"],
         heal_regions_in=base, heal_regions_out=int(in_comp.max()) + 1,
         host_syncs=int(sum(syncs)), host_syncs_per_chunk=syncs,
-        cc_capped=int(capped), cc_rounds_max=int(ccr_max),
-        other=time.perf_counter() - t_all0 - timed)
-    return components, in_comp.astype(np.int32)
+        cc_capped=int(capped), cc_rounds_max=int(ccr_max))
+    return components, in_comp, st
 
 
 def chunked_cutpursuit(features, xyz, src, tgt, w, reg_strength: float,
@@ -255,65 +266,59 @@ def partition_cloud_big(xyz, rgb=None, labels=None, objects=None,
     device = card_unless(device)
     cfg = cfg or PartitionConfig()
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    times, info = {}, {}
+    with stage("spgt.features", times, "features"):
+        xyz, rgb, labels = prune_stage(xyz, rgb, labels, objects, n_labels,
+                                       cfg, device)
+        xyz = np.ascontiguousarray(xyz, np.float32)
+        n = len(xyz)
+        xyz_dev = torch.as_tensor(xyz, device=device)
+        with stage("spgt.features.knn", info, "knn_call", device):
+            bi, bd2, knn_info = knn_bigcloud(xyz_dev, cfg.k_nn_geof)
+            idx_adj = bi[:, :cfg.k_nn_adj]
+            d2_adj = bd2[:, :cfg.k_nn_adj]
+        with stage("spgt.features.geof", info, "geof", device):
+            geof_dev = compute_geof(xyz_dev, bi, chunk=GEOF_CHUNK)
+            del bi, bd2
+            use_color = (cfg.dataset == "s3dis" and rgb is not None
+                         and len(rgb) > 0)
+            f_dev = _assemble_features_device(
+                geof_dev, torch.as_tensor(np.asarray(rgb, np.uint8),
+                                          device=device)
+                if use_color else None)
+    times["features_info"] = info
 
-    times = {}
-    t0 = time.perf_counter()
-    xyz, rgb, labels = prune_stage(xyz, rgb, labels, objects, n_labels, cfg,
-                                   device)
-    xyz = np.ascontiguousarray(xyz, np.float32)
-    n = len(xyz)
-    xyz_dev = torch.as_tensor(xyz, device=device)
-    t1 = time.perf_counter()
-    bi, bd2, info = knn_bigcloud(xyz_dev, cfg.k_nn_geof)
-    idx_adj = bi[:, :cfg.k_nn_adj]
-    d2_adj = bd2[:, :cfg.k_nn_adj]
-    sync()
-    t_knn = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    geof_dev = compute_geof(xyz_dev, bi, chunk=GEOF_CHUNK)
-    del bi, bd2
-    use_color = cfg.dataset == "s3dis" and rgb is not None and len(rgb) > 0
-    f_dev = _assemble_features_device(
-        geof_dev, torch.as_tensor(np.asarray(rgb, np.uint8), device=device)
-        if use_color else None)
-    sync()
-    times["features"] = time.perf_counter() - t0
-    times["features_info"] = {"knn_call": t_knn,
-                              "geof": time.perf_counter() - t1}
-
-    t0 = time.perf_counter()
-    components, in_component = chunked_cutpursuit_device(
-        f_dev, idx_adj, d2_adj, xyz_dev, cfg.reg_strength,
-        lambda_edge_weight=cfg.lambda_edge_weight, cutoff=cfg.cp_cutoff,
-        chunk_points=CHUNK_POINTS)
-    times["partition"] = time.perf_counter() - t0
+    with stage("spgt.cp", times, "partition"):
+        components, in_component = chunked_cutpursuit_device(
+            f_dev, idx_adj, d2_adj, xyz_dev, cfg.reg_strength,
+            lambda_edge_weight=cfg.lambda_edge_weight, cutoff=cfg.cp_cutoff,
+            chunk_points=CHUNK_POINTS)
     times["cp_info"] = dict(LAST_CP_STATS)
 
-    t0 = time.perf_counter()
-    if host_outputs:
-        tgt = idx_adj.reshape(-1).cpu().numpy().astype(np.uint32)
-        graph_nn = {
-            "is_nn": True,
-            "source": np.repeat(np.arange(n, dtype=np.uint32), cfg.k_nn_adj),
-            "target": tgt,
-            "distances": np.sqrt(np.maximum(
-                d2_adj.cpu().numpy(), 0.0)).reshape(-1).astype(np.float32),
-        }
-        geof = geof_dev.cpu().numpy()
-    else:
-        graph_nn, geof = {"is_nn": True}, None
-    times["features_info"]["host_fetch"] = time.perf_counter() - t0
+    with stage("spgt.features.fetch", info, "host_fetch"):
+        if host_outputs:
+            tgt = tracing.to_host(idx_adj.reshape(-1),
+                                  "features.adj").numpy().astype(np.uint32)
+            graph_nn = {
+                "is_nn": True,
+                "source": np.repeat(np.arange(n, dtype=np.uint32),
+                                    cfg.k_nn_adj),
+                "target": tgt,
+                "distances": np.sqrt(np.maximum(
+                    tracing.to_host(d2_adj, "features.d2").numpy(),
+                    0.0)).reshape(-1).astype(np.float32),
+            }
+            geof = tracing.to_host(geof_dev, "features.geof").numpy()
+        else:
+            graph_nn, geof = {"is_nn": True}, None
 
-    t0 = time.perf_counter()
-    graph_sp = compute_sp_graph_device(xyz_dev, cfg.d_se_max, in_component,
-                                       labels, n_labels, idx_adj=idx_adj)
-    times["spg"] = time.perf_counter() - t0
-    times["knn_info"] = info["stage_seconds"]
-    times["knn_levels"] = {"levels": info["levels"],
-                           "n_fallback": info["n_fallback"]}
+    with stage("spgt.spg", times, "spg"):
+        graph_sp = compute_sp_graph_device(xyz_dev, cfg.d_se_max,
+                                           in_component, labels, n_labels,
+                                           idx_adj=idx_adj)
+    times["knn_info"] = knn_info["stage_seconds"]
+    times["knn_levels"] = {"levels": knn_info["levels"],
+                           "n_fallback": knn_info["n_fallback"]}
     return PartitionResult(
         xyz=xyz,
         rgb=(np.asarray(rgb) if rgb is not None

@@ -12,8 +12,9 @@ flagship Semantic3D SpgModel (`gru_10,f_8`, 8 classes; cli/train.py:62,
 datasets.py:87) -> per-voxel classes 1..8 (`reduced_labels2full` of the
 superpoint classes + 1, cli/write_semantic3d.py:55-58) -> every raw point's
 class by `interpolate_labels_batch` (one nn1 kernel call per chunk of raw
-rows). Each stage's wall time is recorded, synchronised with the card when
-`device` is CUDA.
+rows). Each stage's wall time is recorded (`utils/tracing.stage`),
+synchronised with the card when `device` is CUDA. With tracing on, the scan
+is the root span `spgt.cloud`.
 """
 from __future__ import annotations
 
@@ -22,17 +23,17 @@ import os
 
 import numpy as np
 
-from .data.loader import (LoaderConfig, collate_spg, load_spg_sample,
-                          pc_attrib_dims)
-from .data.parsed import build_point_matrix, parsed_entries
+from .data.loader import LoaderConfig
 from .data.provider import (interpolate_labels_batch, read_semantic3d_format,
                             reduced_labels2full)
-from .data.spg_io import EdgeFeatScaler, spg_entry
+from .data.spg_io import EdgeFeatScaler
 from .device import card_unless
 from .learn.infer import eval_step
 from .models.spgmodel import SpgBatch
 from .pipeline import PartitionConfig, PartitionResult, partition_cloud
-from .room import EDGE_ATTRIBS, stage_timer
+from .room import EDGE_ATTRIBS, superpoint_batch
+from .utils import tracing
+from .utils.tracing import stage
 
 SEMA3D_N_LABELS = 8
 # the reference's Semantic3D partition recipe (Semantic3D.md:18-24)
@@ -62,16 +63,8 @@ def scan_batch(part: PartitionResult, n_classes: int,
     """The model's input for a scan's partition: every superpoint's points
     as 11-column Semantic3D rows, the SPG entry (edge features scaled by
     `scaler` when given), collated on `device` (default: the card)."""
-    device = card_unless(device)
-    rows = parsed_entries(
-        build_point_matrix(part.xyz, part.rgb, part.geof, style="sema3d"),
-        part.components)
-    entry = spg_entry(part.graph_sp, edge_attribs)
-    if scaler is not None:
-        entry = entry[:3] + (scaler.transform(entry[3]), entry[4])
-    sample = load_spg_sample(entry, rows, loader_cfg)
-    return collate_spg([sample], loader_cfg, n_classes,
-                       pc_attrib_dims(loader_cfg.pc_attribs), device)
+    return superpoint_batch(part, n_classes, loader_cfg, edge_attribs, scaler,
+                            card_unless(device), style="sema3d")
 
 
 def label_scan(raw_path: str, model, device=None,
@@ -86,31 +79,44 @@ def label_scan(raw_path: str, model, device=None,
     (default: the card), `scaler` the edge-feature scaler it was trained
     with (None: features unscaled)."""
     device = card_unless(device)
+    with tracing.span("spgt.cloud", path="scan") as cloud:
+        return _label_scan(raw_path, model, device, cfg, ver_batch,
+                           loader_cfg, edge_attribs, scaler, cloud)
+
+
+def _label_scan(raw_path, model, device, cfg, ver_batch, loader_cfg,
+                edge_attribs, scaler, cloud) -> ScanLabels:
     times = {}
-    stage = stage_timer(device, times)
     label_file = os.path.splitext(raw_path)[0] + ".labels"
     has_labels = os.path.isfile(label_file)
-    read = stage("read_semantic3d", read_semantic3d_format, raw_path,
-                 SEMA3D_N_LABELS if has_labels else 0,
-                 label_file if has_labels else "", cfg.voxel_width,
-                 ver_batch, device=device)
+    with stage("spgt.read", times, "read_semantic3d", device):
+        read = read_semantic3d_format(
+            raw_path, SEMA3D_N_LABELS if has_labels else 0,
+            label_file if has_labels else "", cfg.voxel_width, ver_batch,
+            device=device)
     xyz, rgb = read[:2]
     labels = read[2] if has_labels else None
-    part = stage("partition_cloud", partition_cloud, xyz, rgb, labels, None,
-                 SEMA3D_N_LABELS, dataclasses.replace(cfg, voxel_width=0.0),
-                 device=device)
+    with stage("spgt.partition", times, "partition_cloud", device):
+        part = partition_cloud(xyz, rgb, labels, None, SEMA3D_N_LABELS,
+                               dataclasses.replace(cfg, voxel_width=0.0),
+                               device=device)
     times.update({f"partition_cloud.{k}": v for k, v in part.times.items()})
 
-    batch = stage("superpoint_batch", scan_batch, part, model.n_classes,
-                  loader_cfg, edge_attribs, scaler, device)
-    _, logits = stage("model", eval_step, model, batch)
+    with stage("spgt.batch", times, "superpoint_batch", device):
+        batch = scan_batch(part, model.n_classes, loader_cfg, edge_attribs,
+                           scaler, device)
+    with stage("spgt.model", times, "model", device):
+        _, logits = eval_step(model, batch)
     n_sp = len(part.components)
-    logits = logits[:n_sp].cpu().numpy()
-    voxel_cls = stage("voxel_labels", reduced_labels2full,
-                      logits.argmax(1).astype(np.uint8) + 1, part.components,
-                      len(part.xyz))
-    pred = stage("interpolate_labels_batch", interpolate_labels_batch,
-                 raw_path, part.xyz, voxel_cls, ver_batch, device=device)
+    logits = tracing.to_host(logits[:n_sp], "logits").numpy()
+    with stage("spgt.voxel_labels", times, "voxel_labels", device):
+        voxel_cls = reduced_labels2full(
+            logits.argmax(1).astype(np.uint8) + 1, part.components,
+            len(part.xyz))
+    with stage("spgt.spread", times, "interpolate_labels_batch", device):
+        pred = interpolate_labels_batch(raw_path, part.xyz, voxel_cls,
+                                        ver_batch, device=device)
+    cloud.set(raw_points=len(pred))
     cp = part.times.get("cp_info", {})
     counts = {
         "raw_points": len(pred),
@@ -118,7 +124,8 @@ def label_scan(raw_path: str, model, device=None,
         "chunks": cp.get("n_chunks", 1),
         "superpoints": n_sp,
         "superedges": int(len(part.graph_sp["source"])),
-        "embedded_superpoints": int(batch.cloud_mask.sum()),
+        "embedded_superpoints": int(tracing.to_host(batch.cloud_mask.sum(),
+                                                    "embedded")),
     }
     return ScanLabels(labels=pred, logits=logits, partition=part, batch=batch,
                       counts=counts, times=times)

@@ -1,11 +1,9 @@
 """The port's last modules against the JAX package's, on the CPU: graph
-pooling (models/pool.py), tracing (utils/tracing.py), the reference
-checkpoint loader (learn/checkpoint.load_reference_checkpoint, against
+pooling (models/pool.py), the reference checkpoint loader (learn/checkpoint.load_reference_checkpoint, against
 learn/convert_torch.load_reference_checkpoint) and the dense device cut
 pursuit (ops/cutpursuit_dense.py, against ops/cutpursuit_jax.py).
 """
 import argparse
-import json
 
 import jax
 import jax.numpy as jnp
@@ -103,46 +101,6 @@ class TestGraphPool:
         with pytest.raises(ValueError, match="unknown aggr"):
             graph_pool(torch.zeros(2, 1), torch.zeros(1, dtype=torch.int64),
                        torch.zeros(1, dtype=torch.int64), 1, None, "sum")
-
-
-# ---------------------------------------------------------------- tracing
-class TestTracing:
-    def test_stage_timer_matches_jax(self):
-        from superpoint_graph_tpu.utils.tracing import StageTimer as TimerJ
-        from superpoint_graph_tpu_torch.utils.tracing import StageTimer
-
-        reports = []
-        for cls in (StageTimer, TimerJ):
-            t = cls()
-            for name in ("a", "a", "b"):
-                with t.stage(name):
-                    pass
-            reports.append(t.report())
-            assert json.loads(str(t)) == t.report()
-        assert reports[0].keys() == reports[1].keys() == {"a", "b"}
-        assert [r["a"]["count"] for r in reports] == [2, 2]
-        assert reports[0]["a"].keys() == reports[1]["a"].keys()
-
-    def test_trace_noop_without_env(self, monkeypatch, tmp_path):
-        from superpoint_graph_tpu_torch.utils.tracing import trace
-
-        monkeypatch.delenv("SPGT_TRACE_DIR", raising=False)
-        monkeypatch.chdir(tmp_path)
-        with trace("x"):
-            torch.ones(3).sum()
-        assert not list(tmp_path.iterdir())
-
-    def test_trace_writes_chrome_trace_with_annotation(self, monkeypatch,
-                                                       tmp_path):
-        from superpoint_graph_tpu_torch.utils.tracing import annotate, trace
-
-        monkeypatch.setenv("SPGT_TRACE_DIR", str(tmp_path))
-        with trace("run"):
-            with annotate("spgt_block"):
-                torch.ones(64).cumsum(0)
-        events = json.loads((tmp_path / "run" / "trace.json").read_text())
-        names = {e.get("name") for e in events["traceEvents"]}
-        assert "spgt_block" in names
 
 
 # ------------------------------------------------ the reference checkpoint
