@@ -14,7 +14,8 @@ their concatenated points; labels and object ids are then written slice by
 slice in file order, so a point claimed by two objects keeps the later one,
 as the JAX package's per-object loop does. The Semantic3D functions read
 in chunks of `ver_batch` rows with pandas (imported when called), as the
-JAX package does.
+JAX package does; the reader can hand its chunks' raw `x y z` to the
+spread, which then labels them without parsing the text again.
 """
 from __future__ import annotations
 
@@ -128,17 +129,23 @@ def interpolate_labels(xyz_up, xyz, labels, device=None):
 
 def read_semantic3d_format(data_file: str, n_class: int,
                            file_label_path: str, voxel_width: float,
-                           ver_batch: int, device=None):
+                           ver_batch: int, device=None,
+                           raw_xyz_out: list | None = None):
     """A Semantic3D scan (`x y z intensity r g b` rows, labels one a row in
     `file_label_path`) read in chunks of `ver_batch` rows (all at once when
     ver_batch <= 0), each chunk voxel-pruned on `device` (default: the
-    card) as soon as it is read, so the host holds one chunk of raw points
-    (reference provider.py:250-303). The chunks' voxels are concatenated,
-    not pruned again: a voxel cut by a chunk boundary appears once per
-    chunk (the JAX docstring says "pruned once more"; its code, ported
-    here, does not). Returns (xyz f32, rgb u8[, label histograms u32
-    [m, n_class + 1] when n_class > 0 and a label file is given; the raw
-    labels when voxel_width is 0]).
+    card) as soon as it is read (reference provider.py:250-303). The
+    chunks' voxels are concatenated, not pruned again: a voxel cut by a
+    chunk boundary appears once per chunk (the JAX docstring says "pruned
+    once more"; its code, ported here, does not). Returns (xyz f32, rgb
+    u8[, label histograms u32 [m, n_class + 1] when n_class > 0 and a label
+    file is given; the raw labels when voxel_width is 0]).
+
+    Without `raw_xyz_out` the host holds one chunk of raw points at a time.
+    With it, each chunk's raw `x y z` (float32 [rows, 3], as parsed, before
+    the prune) is appended to that list and stays on the host: 12 bytes a
+    raw point, for `interpolate_labels_batch(raw_xyz=...)` to label without
+    a second parse.
     """
     import pandas as pd
 
@@ -167,6 +174,8 @@ def read_semantic3d_format(data_file: str, n_class: int,
         tracing.count("parse.rows", len(part))
         v = part.values
         xyz_c = np.ascontiguousarray(v[:, 0:3], np.float32)
+        if raw_xyz_out is not None:
+            raw_xyz_out.append(xyz_c)
         rgb_c = np.ascontiguousarray(v[:, 4:7], np.uint8)
         if voxel_width > 0:
             with tracing.span("spgt.read.prune"):
@@ -441,21 +450,12 @@ def reduced_labels2full(labels_red, components, n_ver: int) -> np.ndarray:
     return full
 
 
-def interpolate_labels_batch(data_file: str, xyz, labels, ver_batch: int,
-                             device=None) -> np.ndarray:
-    """Labels of the pruned cloud `xyz` spread to every raw point of
-    `data_file`, read in chunks of `ver_batch` rows: one exact nn1 call per
-    chunk on `device`, default the card (provider.py:637-679). A label
-    histogram [m, c] gives its argmax."""
+def _parsed_xyz(data_file: str, ver_batch: int):
+    """The `x y z` columns of each chunk of `ver_batch` rows of a Semantic3D
+    text file (all rows at once when ver_batch <= 0), parsed as it is
+    iterated."""
     import pandas as pd
 
-    device = card_unless(device)
-    labels = np.asarray(labels)
-    if labels.ndim > 1 and labels.shape[1] > 1:
-        labels = np.argmax(labels, 1)
-    db = torch.as_tensor(np.ascontiguousarray(xyz, np.float32),
-                         device=device)
-    out = []
     with tracing.span("spgt.spread.parse"):
         chunks = iter(pd.read_csv(
             data_file, sep=" ", header=None,
@@ -465,11 +465,34 @@ def interpolate_labels_batch(data_file: str, xyz, labels, ver_batch: int,
         with tracing.span("spgt.spread.parse"):
             part = next(chunks, None)
         if part is None:
-            break
+            return
         tracing.count("parse.rows", len(part))
+        yield part.values[:, 0:3]
+
+
+def interpolate_labels_batch(data_file: str, xyz, labels, ver_batch: int,
+                             device=None, raw_xyz: list | None = None
+                             ) -> np.ndarray:
+    """Labels of the pruned cloud `xyz` spread to every raw point of
+    `data_file`: one exact nn1 call per chunk of raw points on `device`,
+    default the card (provider.py:637-679). The chunks are `raw_xyz` when
+    given, the reader's (`read_semantic3d_format(raw_xyz_out=...)`), and
+    the file is not read; else the file is parsed in chunks of `ver_batch`
+    rows. Both give the same labels for the same chunks. A label histogram
+    [m, c] gives its argmax."""
+    device = card_unless(device)
+    labels = np.asarray(labels)
+    if labels.ndim > 1 and labels.shape[1] > 1:
+        labels = np.argmax(labels, 1)
+    db = torch.as_tensor(np.ascontiguousarray(xyz, np.float32),
+                         device=device)
+    chunks = _parsed_xyz(data_file, ver_batch) if raw_xyz is None else raw_xyz
+    out = []
+    for chunk in chunks:
+        if raw_xyz is not None:
+            tracing.count("spread.reused_rows", len(chunk))
         with tracing.span("spgt.spread.nn1"):
-            q = torch.as_tensor(np.ascontiguousarray(part.values[:, 0:3],
-                                                     np.float32),
+            q = torch.as_tensor(np.ascontiguousarray(chunk, np.float32),
                                 device=device)
             idx = tracing.to_host(nn1(db, q), "spread.nn1").numpy()
         with tracing.span("spgt.spread.gather"):

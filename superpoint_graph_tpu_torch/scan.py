@@ -12,9 +12,12 @@ flagship Semantic3D SpgModel (`gru_10,f_8`, 8 classes; cli/train.py:62,
 datasets.py:87) -> per-voxel classes 1..8 (`reduced_labels2full` of the
 superpoint classes + 1, cli/write_semantic3d.py:55-58) -> every raw point's
 class by `interpolate_labels_batch` (one nn1 kernel call per chunk of raw
-rows). Each stage's wall time is recorded (`utils/tracing.stage`),
-synchronised with the card when `device` is CUDA. With tracing on, the scan
-is the root span `spgt.cloud`.
+rows). The text is parsed once: the reader's float32 `x y z` chunks are held
+on the host until the spread, 12 bytes a raw point (96 MB for 8e6 points,
+about 1.2 GB for 1e8), and released once it has returned; the card holds
+none of them but the chunk the spread is labelling. Each stage's wall time
+is recorded (`utils/tracing.stage`), synchronised with the card when
+`device` is CUDA. With tracing on, the scan is the root span `spgt.cloud`.
 """
 from __future__ import annotations
 
@@ -89,11 +92,12 @@ def _label_scan(raw_path, model, device, cfg, ver_batch, loader_cfg,
     times = {}
     label_file = os.path.splitext(raw_path)[0] + ".labels"
     has_labels = os.path.isfile(label_file)
+    raw_xyz = []  # the reader's chunks of raw x y z, for the spread
     with stage("spgt.read", times, "read_semantic3d", device):
         read = read_semantic3d_format(
             raw_path, SEMA3D_N_LABELS if has_labels else 0,
             label_file if has_labels else "", cfg.voxel_width, ver_batch,
-            device=device)
+            device=device, raw_xyz_out=raw_xyz)
     xyz, rgb = read[:2]
     labels = read[2] if has_labels else None
     with stage("spgt.partition", times, "partition_cloud", device):
@@ -115,7 +119,9 @@ def _label_scan(raw_path, model, device, cfg, ver_batch, loader_cfg,
             len(part.xyz))
     with stage("spgt.spread", times, "interpolate_labels_batch", device):
         pred = interpolate_labels_batch(raw_path, part.xyz, voxel_cls,
-                                        ver_batch, device=device)
+                                        ver_batch, device=device,
+                                        raw_xyz=raw_xyz)
+    raw_xyz.clear()
     cloud.set(raw_points=len(pred))
     cp = part.times.get("cp_info", {})
     counts = {

@@ -208,3 +208,81 @@ def test_label_scan_logits_match_flax(scan_run, jax_scan, tmp_path):
     with torch.no_grad():
         logits_t = tmodel.eval()(batch_t)[:n_sp].numpy()
     np.testing.assert_allclose(logits_t, logits_j, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("ver_batch", [5000, 0])
+def test_spread_of_the_readers_chunks_equals_the_parsed_spread(scan_file,
+                                                                ver_batch):
+    """interpolate_labels_batch fed the reader's raw chunks gives, label for
+    label, what it gives parsing the file again: same voxels, same labels,
+    same chunks (three of 5,000 rows or fewer; one with ver_batch 0)."""
+    from superpoint_graph_tpu_torch.data import provider as pt
+
+    path, _ = scan_file
+    raw = []
+    xyz, _, hist = pt.read_semantic3d_format(path, 8, path[:-4] + ".labels",
+                                             0.1, ver_batch, device="cpu",
+                                             raw_xyz_out=raw)
+    assert [len(c) for c in raw] == ([5000, 5000, 2000] if ver_batch
+                                     else [12_000])
+    assert all(c.dtype == np.float32 and c.shape[1] == 3 for c in raw)
+    parsed = pt.interpolate_labels_batch(path, xyz, hist, ver_batch,
+                                         device="cpu")
+    reused = pt.interpolate_labels_batch(path, xyz, hist, ver_batch,
+                                         device="cpu", raw_xyz=raw)
+    assert reused.dtype == parsed.dtype
+    np.testing.assert_array_equal(reused, parsed)
+
+
+def test_label_scan_parses_the_text_once(tmp_path, monkeypatch):
+    """With tracing on, a scan's raw rows are parsed once, by the reader:
+    the spread opens no parse span and labels the reader's chunks
+    (`spread.reused_rows`), which hold the file's float32 x y z unchanged
+    by the prune that shared their memory on the CPU, and are released
+    once the spread has returned."""
+    import pandas as pd
+
+    from superpoint_graph_tpu_torch import scan
+    from superpoint_graph_tpu_torch.data.loader import LoaderConfig
+    from superpoint_graph_tpu_torch.data.synthetic import write_semantic3d_scan
+    from superpoint_graph_tpu_torch.models.spgmodel import SpgModel
+    from superpoint_graph_tpu_torch.utils import tracing
+
+    path = tmp_path / "station.txt"
+    write_semantic3d_scan(path, 3_000, seed=4)
+    want = pd.read_csv(path, sep=" ", header=None).values[:, 0:3].astype(
+        np.float32)
+    handed = []
+    spread = scan.interpolate_labels_batch
+
+    def recorded(*args, raw_xyz, **kwargs):
+        handed.append((raw_xyz, [c.copy() for c in raw_xyz]))
+        return spread(*args, raw_xyz=raw_xyz, **kwargs)
+
+    monkeypatch.setattr(scan, "interpolate_labels_batch", recorded)
+    model = SpgModel(8, model_config="gru_2,f_8", ptn_nfeat=11,
+                     ptn_nfeat_stn=11, **SCAN_MODEL)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    cfg = dataclasses.replace(scan.SEMA3D_CONFIG, voxel_width=0.1,
+                              reg_strength=0.05)
+    tracing.collect()
+    tracing.enable()
+    try:
+        r = scan.label_scan(str(path), model.eval(), "cpu", cfg=cfg,
+                            ver_batch=1_000,
+                            loader_cfg=LoaderConfig(pc_attribs="xyzrgbelpsv",
+                                                    ptn_npts=32,
+                                                    ptn_minpts=10))
+    finally:
+        tracing.disable()
+        (root,) = tracing.collect()
+    summary = tracing.summary(root)
+    assert "spgt.spread.parse" not in summary["spans"]
+    assert summary["spans"]["spgt.spread.nn1"]["count"] == 3
+    assert summary["counters"]["parse.rows"] == len(want)
+    assert summary["counters"]["spread.reused_rows"] == len(want)
+    ((held, at_spread),) = handed
+    assert held == []
+    assert [len(c) for c in at_spread] == [1000, 1000, 1000]
+    np.testing.assert_array_equal(np.concatenate(at_spread), want)
+    assert r.labels.shape == (len(want),)

@@ -13,7 +13,10 @@ warm-up from --seed), then:
   (self seconds of `spgt.read.parse` and `spgt.spread.parse`), d2h_syncs
   (`d2h.reads`), d2h_wait_s (`spgt.d2h` seconds), d2h_mib (`d2h.bytes` /
   2^20), cp_heal_s (`spgt.cp.heal` plus `spgt.cp.relabel`, where the cloud
-  has them), and every span's total and self seconds and count;
+  has them), parse_rows (`parse.rows`: a scan's raw rows once when the
+  spread labels the reader's chunks), spread_reused_rows
+  (`spread.reused_rows`, where the cloud has it), and every span's total
+  and self seconds and count;
 - one more cloud traced under torch.profiler with the benchmark's own spans
   too: its idle time by the innermost `spgt.` span (`tracing.name_idle`),
   its gaps named by the program (the span at each gap's middle) beside the
@@ -61,7 +64,10 @@ def readings(program: dict) -> dict:
            + sec("spgt.spread.parse", "self_s"),
            "d2h_syncs": c.get("d2h.reads", 0),
            "d2h_wait_s": sec("spgt.d2h"),
-           "d2h_mib": c.get("d2h.bytes", 0) / 2**20}
+           "d2h_mib": c.get("d2h.bytes", 0) / 2**20,
+           "parse_rows": c.get("parse.rows", 0)}
+    if "spread.reused_rows" in c:
+        out["spread_reused_rows"] = c["spread.reused_rows"]
     if "spgt.cp.heal" in spans:
         out["cp_heal_s"] = sec("spgt.cp.heal") + sec("spgt.cp.relabel")
     return out
