@@ -4,7 +4,7 @@ preprocessed cloud into superpoint_graphs/.
 Port of superpoint_graph_tpu/cli/ssp_generate.py (reference
 supervized_partition/generate_partition.py:23-140). The model's args come
 from the checkpoint (generate_partition.py:88), so the architecture cannot
-drift. `generate_cloud` is the per-cloud work (`generate_partition`:
+drift. `generate_cloud` is the per-cloud work (ssp/generate.py:
 embed on the card, the per-edge distances, cut pursuit; then the SPG with
 Delaunay support), on a structure file or the dict
 build_supervision_structure returns; `main`
@@ -18,7 +18,8 @@ import argparse
 import os
 
 from ..device import card_unless
-from .ssp_train import N_CLASSES, cloud_embeddings, configs
+from ..ssp.generate import partition_cloud, superpoint_graph
+from .ssp_train import N_CLASSES, configs
 
 
 def parse_args(argv=None):
@@ -57,31 +58,21 @@ def generate_partition(trainer, loss_cfg, loader_cfg, structure,
                        device=None):
     """(the loaded cloud, components, in_component) of one cloud: its
     eval-mode embeddings, the partition of loss_cfg's backend on `device`
-    (default: the card)."""
-    from ..ssp.graph_processing import graph_collate, graph_loader
-    from ..ssp.losses import compute_partition
-
-    device = card_unless(device)
-    sample = graph_collate([graph_loader(structure, False, loader_cfg)])
-    emb, diff = cloud_embeddings(trainer, sample, loss_cfg.dist_type, device)
-    comps, in_comp = compute_partition(
-        loss_cfg, emb, sample["edg_source"], sample["edg_target"], diff,
-        sample["xyz"], device)
-    return sample, comps, in_comp
+    (default: the card); ssp/generate.partition_cloud."""
+    part = partition_cloud(trainer.model, loss_cfg, loader_cfg, structure,
+                           device)
+    return part.sample, part.components, part.in_component
 
 
 def generate_cloud(trainer, loss_cfg, loader_cfg, structure, n_classes: int,
                    device=None):
     """(graph_sp, components, in_component) of one cloud: its partition
-    (generate_partition), then its SPG (graph/spg.py, Delaunay support)."""
-    from ..graph.spg import compute_sp_graph
-
-    device = card_unless(device)
-    sample, comps, in_comp = generate_partition(trainer, loss_cfg, loader_cfg,
-                                                structure, device)
-    graph_sp = compute_sp_graph(sample["xyz"], 100.0, in_comp,
-                                sample["labels"], n_classes, device=device)
-    return graph_sp, comps, in_comp
+    (generate_partition), then its SPG (ssp/generate.superpoint_graph:
+    Delaunay support)."""
+    part = partition_cloud(trainer.model, loss_cfg, loader_cfg, structure,
+                           device)
+    return (superpoint_graph(part, n_classes, device), part.components,
+            part.in_component)
 
 
 def main(argv=None, device=None):

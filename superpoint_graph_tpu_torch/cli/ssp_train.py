@@ -28,7 +28,6 @@ import json
 import os
 
 import numpy as np
-import torch
 
 from ..device import card_unless
 
@@ -169,38 +168,22 @@ def run_epoch(trainer, structures, loader_cfg, batch_size: int,
             "avg_comp_size": float(np.mean(comp_size))}
 
 
-def cloud_embeddings(trainer, sample, dist_type: str, device, use_geof=False):
-    """(embeddings [n, d] numpy, per-edge distances [E] numpy) of a loaded
-    cloud: the trained embedder's in eval mode, or with `use_geof` the
-    sample's handcrafted features flattened."""
-    from ..ssp.losses import compute_dist
-
-    if use_geof:
-        emb = torch.as_tensor(np.asarray(sample["clouds"], np.float32)
-                              .reshape(len(sample["xyz"]), -1), device=device)
-    else:
-        emb = trainer.embed(sample["clouds"], sample["clouds_global"])
-    diff = compute_dist(
-        emb, torch.as_tensor(sample["edg_source"], device=device),
-        torch.as_tensor(sample["edg_target"], device=device), dist_type)
-    return emb.cpu().numpy(), diff.cpu().numpy()
-
-
 def evaluate_clouds(trainer, loss_cfg, loader_cfg, structures,
                     n_classes: int, BR_tolerance: int, device, spg_paths=None,
                     use_geof=False):
     """The final evaluation (supervized_partition.py:297-375): each cloud
-    embedded whole, partitioned and counted; its SPG written to
-    spg_paths[i] when given. Returns the FinalEvaluator."""
+    embedded whole and partitioned (ssp/generate.partition_cloud), then
+    counted; its SPG written to spg_paths[i] when given. Returns the
+    FinalEvaluator."""
     from ..ssp.evaluate import FinalEvaluator
-    from ..ssp.graph_processing import graph_collate, graph_loader
+    from ..ssp.generate import partition_cloud
 
     ev = FinalEvaluator(n_classes, BR_tolerance, device)
     for i, structure in enumerate(structures):
-        sample = graph_collate([graph_loader(structure, False, loader_cfg)])
-        emb, diff = cloud_embeddings(trainer, sample, loss_cfg.dist_type,
-                                     device, use_geof)
-        ev.add_cloud(loss_cfg, emb, diff, sample,
+        part = partition_cloud(None if use_geof else trainer.model, loss_cfg,
+                               loader_cfg, structure, device,
+                               use_geof=use_geof)
+        ev.add_cloud(part,
                      spg_out_path=None if spg_paths is None else spg_paths[i])
     return ev
 

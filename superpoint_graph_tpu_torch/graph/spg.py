@@ -14,6 +14,7 @@ from scipy.spatial import Delaunay
 from ..device import card_unless
 from ..ops.knn import knn
 from ..utils import tracing
+from ..utils.tracing import stage
 
 
 def _cross_edges(src, tgt, in_component) -> np.ndarray:
@@ -26,13 +27,25 @@ def _cross_edges(src, tgt, in_component) -> np.ndarray:
     return np.unique(edges, axis=1)
 
 
-def _delaunay_cross_edges(xyz, in_component) -> np.ndarray:
-    """All Delaunay tetrahedron edges crossing components (graphs.py:82-109)."""
-    tets = Delaunay(xyz).simplices
+def _delaunay_cross_edges(xyz, in_component, times=None) -> np.ndarray:
+    """All Delaunay tetrahedron edges crossing components (graphs.py:82-109),
+    both directions, unique columns [2, E] in (source, target) order, as
+    `_cross_edges` gives them; the triangulation's seconds go under
+    times["delaunay"] when given."""
+    with stage("spgt.spg.delaunay", times, "delaunay"):
+        tets = Delaunay(xyz).simplices
+    tracing.count("delaunay.simplices", len(tets))
     pairs = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
     src = np.concatenate([tets[:, a] for a, _ in pairs])
     tgt = np.concatenate([tets[:, b] for _, b in pairs])
-    return _cross_edges(src, tgt, in_component)
+    m = in_component[src] != in_component[tgt]
+    # _cross_edges' columns, deduplicated as one int64 key (src, tgt) a
+    # column: a tetrahedron edge recurs in ~6 tetrahedra, and np.unique's
+    # axis=1 sort of millions of columns took seconds a street frame
+    n = np.int64(len(xyz))
+    a, b = src[m].astype(np.int64), tgt[m].astype(np.int64)
+    key = np.unique(np.concatenate([a * n + b, b * n + a]))
+    return np.stack([key // n, key % n]).astype(tets.dtype)
 
 
 def _knn_cross_edges(xyz, in_component, device, k: int = 10):
@@ -87,11 +100,13 @@ def _component_stats(xyz, in_component, n_com):
 
 
 def compute_sp_graph(xyz, d_max, in_component, labels, n_labels,
-                     adjacency="delaunay", knn_edges=None, device=None):
+                     adjacency="delaunay", knn_edges=None, device=None,
+                     times=None):
     """The superpoint graph dict, with the reference's keys, shapes and
     dtypes (graphs.py:75-210). `knn_edges=(source, target)` reuses existing
     adjacency edges as superedge support; adjacency="knn" searches on
-    `device` (default: the card). (The JAX version's `components` argument,
+    `device` (default: the card). With `times`, the Delaunay's seconds go
+    under times["delaunay"]. (The JAX version's `components` argument,
     which it never reads, is dropped.)"""
     device = card_unless(device)
     xyz = np.asarray(xyz, np.float32)
@@ -106,7 +121,7 @@ def compute_sp_graph(xyz, d_max, in_component, labels, n_labels,
                                  np.asarray(knn_edges[1], np.int64),
                                  in_component)
         elif adjacency == "delaunay":
-            edges = _delaunay_cross_edges(xyz, in_component)
+            edges = _delaunay_cross_edges(xyz, in_component, times)
         elif adjacency == "knn":
             edges = _knn_cross_edges(xyz, in_component, device)
         else:

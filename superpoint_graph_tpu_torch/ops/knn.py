@@ -112,7 +112,7 @@ def knn_vs_db(xyz: torch.Tensor, q_ids: torch.Tensor, k: int,
     return out_i, out_d
 
 
-def knn(xyz: torch.Tensor, k: int, *, block_q: int = 2048
+def knn(xyz: torch.Tensor, k: int, *, block_q: int | None = 2048
         ) -> tuple[torch.Tensor, torch.Tensor]:
     """kNN of every point among the other points of the same cloud (the
     point itself excluded, reference graphs.py:30-40), by brute force, for
@@ -384,7 +384,7 @@ def _merge_delaunay(graph: dict, xyz: np.ndarray, voronoi: float) -> None:
 
 def compute_graph_nn_2(xyz: np.ndarray, k_nn_adj: int, k_nn_geof: int,
                        device=None, return_device: bool = False,
-                       voronoi: float = 0.0):
+                       voronoi: float = 0.0, block_q: int | None = 2048):
     """Adjacency graph + geof neighbour table from ONE search at k_nn_geof
     (reference graphs.py:26-73): brute force up to BIGCLOUD_THRESHOLD
     points, `knn_bigcloud` above. Returns (graph dict of numpy {is_nn,
@@ -395,7 +395,9 @@ def compute_graph_nn_2(xyz: np.ndarray, k_nn_adj: int, k_nn_geof: int,
     `dev`, without pad rows). With `voronoi > 0` the edges of the Delaunay
     tetrahedra shorter (squared) than `voronoi` join the kNN edges,
     deduplicated, with distances of the merged set (graphs.py:42-64, the
-    JAX version's host code)."""
+    JAX version's host code). `block_q`: the brute force's query rows a
+    block; None takes TILE_ELEMS // n, so that its scratch does not grow
+    with the cloud."""
     device = card_unless(device)
     assert k_nn_adj <= k_nn_geof
     n = len(xyz)
@@ -404,7 +406,7 @@ def compute_graph_nn_2(xyz: np.ndarray, k_nn_adj: int, k_nn_geof: int,
     if n > BIGCLOUD_THRESHOLD:
         idx, d2, _ = knn_bigcloud(xyz_t, k_nn_geof)
     else:
-        idx, d2 = knn(xyz_t, k_nn_geof)
+        idx, d2 = knn(xyz_t, k_nn_geof, block_q=block_q)
     idx_adj = tracing.to_host(idx[:, :k_nn_adj], "knn.adj").numpy()
     dist = np.sqrt(np.maximum(
         tracing.to_host(d2[:, :k_nn_adj], "knn.adj").numpy(), 0.0))

@@ -34,6 +34,11 @@ from ..models.pointnet import Conv1x1, PointNet, STNkD
 from .losses import (SspLossConfig, compute_dist, compute_loss,
                      compute_weight_loss)
 
+# rows a forward pass of the embedder takes at most: the reference embeds a
+# whole cloud in batches of 2^16 - 1 (pointnet.py:189-218), so the
+# activations' memory does not grow with the cloud
+EMBED_ROWS = 2**16 - 1
+
 
 @dataclasses.dataclass
 class SspModelConfig:
@@ -203,13 +208,13 @@ class SspTrainer:
         return self.model(self._t(clouds), self._t(clouds_global))
 
     def embed_chunked(self, clouds, clouds_global,
-                      chunk: int = 65536) -> np.ndarray:
-        """embed in chunks of `chunk` rows (the reference's 2^16-row
-        batches, pointnet.py:189-218), host numpy out."""
-        out = [self.embed(clouds[i:i + chunk],
-                          clouds_global[i:i + chunk]).cpu().numpy()
-               for i in range(0, len(clouds), chunk)]
-        return np.concatenate(out) if out else np.zeros((0,))
+                      chunk: int | None = None) -> np.ndarray:
+        """embed by `embed_rows` (`chunk` rows at a time, default
+        EMBED_ROWS), host numpy out."""
+        if not len(clouds):
+            return np.zeros((0,))
+        return embed_rows(self.model, self._t(clouds),
+                          self._t(clouds_global), chunk).cpu().numpy()
 
     def state_dict(self) -> dict:
         return {"model": self.model.state_dict(),
@@ -219,3 +224,15 @@ class SspTrainer:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
+
+
+@torch.no_grad()
+def embed_rows(model, clouds, clouds_global,
+               rows: int | None = None) -> torch.Tensor:
+    """Eval-mode embeddings of local clouds [n, k, C] with their global
+    features [n, G] (tensors on the model's device), `rows` at a time
+    (default EMBED_ROWS); in eval mode the rows are independent."""
+    rows = rows or EMBED_ROWS
+    model.eval()
+    return torch.cat([model(clouds[s:s + rows], clouds_global[s:s + rows])
+                      for s in range(0, len(clouds), rows)])

@@ -17,19 +17,16 @@ from ..graph.spg import compute_sp_graph
 from ..learn import metrics
 from ..learn.metrics import perfect_prediction
 from ..utils.h5io import write_spg
-from .losses import SspLossConfig, compute_partition, relax_edge_binary
+from .losses import relax_edge_binary
 
 
-def evaluate_cloud(loss_cfg: SspLossConfig, embeddings: np.ndarray,
-                   diff: np.ndarray, batch: dict, n_classes: int,
-                   BR_tolerance: int = 1, device=None) -> dict:
-    """One cloud's partition of its embeddings and its quality: n_clusters,
-    the ASA confusion matrix (`cm`, `asa`) where the labels are histograms,
-    BR, BP, the partition and both transition masks. The device backend
-    solves on `device`."""
-    pred_components, pred_in_component = compute_partition(
-        loss_cfg, embeddings, batch["edg_source"], batch["edg_target"], diff,
-        batch.get("xyz"), device)
+def evaluate_cloud(batch: dict, partition, n_classes: int,
+                   BR_tolerance: int = 1) -> dict:
+    """One partitioned cloud's quality: n_clusters, the ASA confusion matrix
+    (`cm`, `asa`) where the labels are histograms, BR, BP, the partition
+    and both transition masks; `partition` is (components, in_component)
+    of the loaded cloud `batch`."""
+    pred_components, pred_in_component = partition
     es, et = batch["edg_source"], batch["edg_target"]
     is_transition = np.asarray(batch["is_transition"]).astype(bool)
     pred_transition = pred_in_component[es] != pred_in_component[et]
@@ -71,12 +68,13 @@ class FinalEvaluator:
         self.cm_bp = metrics.ConfusionMatrix(2)
         self.n_clusters = []
 
-    def add_cloud(self, loss_cfg, embeddings, diff, batch, spg_out_path=None,
-                  d_se_max: float = 100.0):
-        """Evaluate one cloud and count it; its SPG (graph/spg.py, Delaunay
-        support) goes to `spg_out_path` (h5) when given."""
-        res = evaluate_cloud(loss_cfg, embeddings, diff, batch,
-                             self.n_classes, self.tol, self.device)
+    def add_cloud(self, part, spg_out_path=None, d_se_max: float = 100.0):
+        """Evaluate one partitioned cloud (an ssp/generate.CloudPartition)
+        and count it; its SPG (graph/spg.py, Delaunay support) goes to
+        `spg_out_path` (h5) when given."""
+        batch = part.sample
+        res = evaluate_cloud(batch, (part.components, part.in_component),
+                             self.n_classes, self.tol)
         labels = np.asarray(batch["labels"])
         es, et = batch["edg_source"], batch["edg_target"]
         n_ver = len(res["pred_in_component"])

@@ -8,7 +8,8 @@ supervized_partition/graph_processing.py):
     (k_nn_local), ground-truth transition edges, geof with the verticality
     doubled, the elevation above a RANSAC plane (utils/ransac.py) or above
     the lowest point, xy normalised to the cloud's box. Prune, kNN and geof
-    run on `device` (default: the card);
+    run on `device` (default: the card). `serving_structure` is the same
+    without the ground truth and the geof, for a cloud to be partitioned;
   * compute_transitions: s3dis, object ids differ; sema3d, labels inpainted
     by cut pursuit (zero fidelity on unlabelled points), then object ids
     differ; vkitti, components of constant label;
@@ -37,6 +38,7 @@ from ..ops.cutpursuit import cutpursuit2
 from ..ops.knn import compute_graph_nn_2
 from ..ops.subgraph import random_subgraph
 from ..ops.voxel import prune
+from ..utils import tracing
 from ..utils.ransac import plane_elevation
 
 
@@ -87,30 +89,60 @@ def build_supervision_structure(xyz, rgb, labels, objects,
     """One cloud's features_supervision structure (the dict write_structure
     stores), its device stages on `device` (default: the card)."""
     device = card_unless(device)
-    if cfg.voxel_width > 0:
-        if cfg.dataset == "s3dis":
-            n_objects = int(objects.max()) + 1
-            xyz, rgb, labels, obj_hist = prune(
-                xyz, cfg.voxel_width, rgb, labels, objects, n_labels,
-                n_objects, device=device)
-            objects = obj_hist[:, 1:].argmax(1) + 1
-        else:
-            xyz, rgb, labels, _ = prune(xyz, cfg.voxel_width, rgb, labels,
-                                        None, n_labels, 0, device=device)
-            objects = np.zeros(len(xyz), np.uint32)
-    n_ver = len(xyz)
-    graph_nn, local_neighbors = compute_graph_nn_2(
-        xyz, cfg.k_nn_adj, cfg.k_nn_local, device=device,
-        voronoi=float(cfg.use_voronoi))
-    is_transition, objects = compute_transitions(cfg.dataset, objects, labels,
-                                                 graph_nn, n_ver)
+    if cfg.voxel_width > 0 and cfg.dataset == "s3dis":
+        n_objects = int(objects.max()) + 1
+        xyz, rgb, labels, obj_hist = prune(
+            xyz, cfg.voxel_width, rgb, labels, objects, n_labels, n_objects,
+            device=device)
+        objects = obj_hist[:, 1:].argmax(1) + 1
+    elif cfg.voxel_width > 0:
+        xyz, rgb, labels, _ = prune(xyz, cfg.voxel_width, rgb, labels, None,
+                                    n_labels, 0, device=device)
+        objects = np.zeros(len(xyz), np.uint32)
+    s, local_neighbors = _structure(xyz, rgb, labels, cfg, device)
+    is_transition, objects = compute_transitions(
+        cfg.dataset, objects, labels, s["graph_nn"], len(xyz))
     if cfg.compute_geof:
-        xyz_t = torch.as_tensor(np.ascontiguousarray(xyz, np.float32),
-                                device=device)
-        geof = geof_ops.compute_geof(xyz_t, local_neighbors).cpu().numpy()
+        xyz_t = torch.as_tensor(s["xyz"], device=device)
+        geof = tracing.to_host(geof_ops.compute_geof(xyz_t, local_neighbors),
+                               "ssp.geof").numpy()
         geof[:, 3] *= 2.0
     else:
         geof = np.zeros(0)
+    return dict(s, is_transition=np.asarray(is_transition, np.uint8),
+                objects=np.asarray(objects, np.uint32), geof=geof)
+
+
+def serving_structure(xyz, rgb, labels, cfg: SspPreprocessConfig,
+                      n_labels: int, device=None) -> dict:
+    """A cloud's structure for partitioning it, not for training: the
+    voxels, the kNN graph, the local neighbourhoods, the elevation and the
+    normalised xy of `build_supervision_structure`, without the
+    ground-truth transitions and objects (zeros here: only the training
+    loss reads them) or the geometric features. `labels` (raw ids) become
+    the voxels' histograms for the SPG."""
+    device = card_unless(device)
+    if cfg.voxel_width > 0:
+        xyz, rgb, labels, _ = prune(xyz, cfg.voxel_width, rgb, labels, None,
+                                    n_labels, 0, device=device)
+    s, _ = _structure(xyz, rgb, labels, cfg, device)
+    n_ver, n_edg = len(s["xyz"]), len(s["graph_nn"]["source"])
+    return dict(s, is_transition=np.zeros(n_edg, np.uint8),
+                objects=np.zeros(n_ver, np.uint32), geof=np.zeros(0))
+
+
+def _structure(xyz, rgb, labels, cfg: SspPreprocessConfig, device):
+    """(the structure's keys that do not depend on the ground truth, the
+    local neighbours [n, k_nn_local] on `device`) of pruned voxels: one kNN
+    search for the adjacency and the local clouds, in tiles of a fixed
+    size so that the peak memory does not follow the voxel count, the
+    elevation above a RANSAC plane (or the lowest point), xy normalised to
+    the box."""
+    xyz = np.asarray(xyz, np.float32)
+    n_ver = len(xyz)
+    graph_nn, local_neighbors = compute_graph_nn_2(
+        xyz, cfg.k_nn_adj, cfg.k_nn_local, device=device,
+        voronoi=float(cfg.use_voronoi), block_q=None)
     if cfg.plane_model:
         elevation = plane_elevation(xyz)
     else:
@@ -118,19 +150,17 @@ def build_supervision_structure(xyz, rgb, labels, objects,
     ma = xyz[:, :2].max(0, keepdims=True)
     mi = xyz[:, :2].min(0, keepdims=True)
     xyn = (xyz[:, :2] - mi) / (ma - mi + 1e-8)
+    local = tracing.to_host(local_neighbors, "ssp.local_neighbors").numpy()
     return {
-        "xyz": np.asarray(xyz, np.float32),
+        "xyz": xyz,
         "rgb": np.asarray(rgb, np.float32),
         "graph_nn": graph_nn,
-        "target_local_geometry": local_neighbors.cpu().numpy()
-        .astype(np.uint32).reshape(n_ver, cfg.k_nn_local),
-        "is_transition": np.asarray(is_transition, np.uint8),
+        "target_local_geometry": local.astype(np.uint32).reshape(
+            n_ver, cfg.k_nn_local),
         "labels": labels,
-        "objects": np.asarray(objects, np.uint32),
-        "geof": geof,
         "elevation": np.asarray(elevation, np.float32),
         "xyn": np.asarray(xyn, np.float32),
-    }
+    }, local_neighbors
 
 
 def _label_dtype(labels) -> str:

@@ -15,8 +15,11 @@ warm-up from --seed), then:
   2^20), cp_heal_s (`spgt.cp.heal` plus `spgt.cp.relabel`, where the cloud
   has them), parse_rows (`parse.rows`: a scan's raw rows once when the
   spread labels the reader's chunks), spread_reused_rows
-  (`spread.reused_rows`, where the cloud has it), and every span's total
-  and self seconds and count;
+  (`spread.reused_rows`, where the cloud has it); on a frame
+  (`frame.label_frame`) embed_s (`spgt.ssp.embed`), delaunay_s
+  (`spgt.spg.delaunay`) and the counters ssp_vertices, ssp_local_points,
+  ssp_edges and delaunay_simplices; and every span's total and self
+  seconds and count;
 - one more cloud traced under torch.profiler with the benchmark's own spans
   too: its idle time by the innermost `spgt.` span (`tracing.name_idle`),
   its gaps named by the program (the span at each gap's middle) beside the
@@ -27,6 +30,8 @@ warm-up from --seed), then:
 Prints one JSON object and writes it to --out. From the repository root:
 
     python3 tools/torch_serve_trace.py --workload s3dis-room-serve --seed 7
+
+(`--workload vkitti-frame-serve` for a vKITTI3D frame).
 
 `--device cpu --traffic '{"points": 20000}'` runs it small on the CPU
 (the traffic's keys replaced), to try it.
@@ -70,6 +75,12 @@ def readings(program: dict) -> dict:
         out["spread_reused_rows"] = c["spread.reused_rows"]
     if "spgt.cp.heal" in spans:
         out["cp_heal_s"] = sec("spgt.cp.heal") + sec("spgt.cp.relabel")
+    if "spgt.ssp.embed" in spans:
+        out["embed_s"] = sec("spgt.ssp.embed")
+        out["delaunay_s"] = sec("spgt.spg.delaunay")
+        for k in ("ssp.vertices", "ssp.local_points", "ssp.edges",
+                  "delaunay.simplices"):
+            out[k.replace(".", "_")] = c.get(k, 0)
     return out
 
 
