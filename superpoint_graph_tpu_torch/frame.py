@@ -5,7 +5,9 @@ raw .npy frame -> voxel prune -> one kNN search (adjacency and local
 neighbourhoods), elevation over the RANSAC plane, xy normalised -> every
 voxel's local cloud through the LocalEmbedder (eval mode), per-edge
 embedding distances -> cut pursuit on [embeddings | spatial_emb * xyz]
-(the device solver) -> superpoint graph with Delaunay superedge support ->
+(the device solver) -> superpoint graph with Delaunay superedge support
+(the voxels triangulated in the calling thread from the prune on, while a
+worker thread runs the kNN, the embedder and the solve) ->
 superpoint point sets (vKITTI rows) -> SpgModel logits -> per-superpoint
 classes spread to the raw points (nn1 kernel).
 
@@ -19,12 +21,15 @@ recorded (`utils/tracing.stage`), synchronised with the card when
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import (FIRST_COMPLETED, Future,
+                                ThreadPoolExecutor, wait)
 
 import numpy as np
 
 from .data.loader import LoaderConfig
 from .data.provider import interpolate_labels, read_vkitti_format
 from .device import card_unless
+from .graph import spg
 from .learn.infer import eval_step
 from .models.spgmodel import SpgBatch
 from .pipeline import PartitionResult
@@ -66,30 +71,62 @@ def label_frame(raw_path: str, embedder, model, device=None,
                 edge_attribs: str = EDGE_ATTRIBS) -> FrameLabels:
     """Run the serving path on one frame; `embedder` is a LocalEmbedder and
     `model` an SpgModel in eval mode, both on `device` (default: the card);
-    the superedge features go to the model unscaled."""
+    the superedge features go to the model unscaled.
+
+    The stages after the read run on a worker thread; the calling thread
+    triangulates the voxels as soon as the prune hands them over, and the
+    SPG waits for the tetrahedra where it needs them. Qhull stays in the
+    calling thread, in practice the main one: on an H100's 8-core host it
+    ran up to 30% slower in most runs in another thread, whose many
+    allocations glibc serves from another malloc arena, though not in
+    every run (PERF.md, section 6)."""
     device = card_unless(device)
     with tracing.span("spgt.cloud", path="frame") as cloud:
-        return _label_frame(raw_path, embedder, model, device, structure_cfg,
-                            loss_cfg, loader_cfg, edge_attribs, cloud)
+        times = {}
+        with stage("spgt.read", times, "read_vkitti", device):
+            xyz, rgb, labels = read_vkitti_format(raw_path)
+        cloud.set(raw_points=len(xyz))
+        voxels, delaunay = Future(), spg.DelaunayJob()
+
+        def stages():
+            with tracing.within(cloud):
+                return _label_frame(xyz, rgb, labels, embedder, model,
+                                    device, structure_cfg, loss_cfg,
+                                    loader_cfg, edge_attribs, times, voxels,
+                                    delaunay)
+
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="frame") as pool:
+            path = pool.submit(stages)
+            try:
+                wait([voxels, path], return_when=FIRST_COMPLETED)
+                if voxels.done():
+                    delaunay.run(voxels.result())
+            finally:  # interrupted here: the worker stops waiting
+                delaunay.future.cancel()
+            return path.result()
 
 
-def _label_frame(raw_path, embedder, model, device, structure_cfg, loss_cfg,
-                 loader_cfg, edge_attribs, cloud) -> FrameLabels:
-    times = {}
-    with stage("spgt.read", times, "read_vkitti", device):
-        xyz, rgb, labels = read_vkitti_format(raw_path)
-    cloud.set(raw_points=len(xyz))
+def _label_frame(xyz, rgb, labels, embedder, model, device, structure_cfg,
+                 loss_cfg, loader_cfg, edge_attribs, times, voxels,
+                 delaunay) -> FrameLabels:
+    """The stages after the read: the prune hands the voxels to `voxels`
+    (a Future), and the SPG takes the tetrahedra from `delaunay`, which
+    the calling thread of `label_frame` runs on them."""
     with stage("spgt.features", times, "partition_cloud.features", device):
         structure = serving_structure(xyz, rgb, np.asarray(labels, np.int32),
-                                      structure_cfg, VKITTI_N_LABELS, device)
+                                      structure_cfg, VKITTI_N_LABELS, device,
+                                      on_voxels=voxels.set_result)
     sub = {}
     emb = generate.partition_cloud(embedder, loss_cfg, SspLoaderConfig(),
                                    structure, device, sub)
     times["ssp_embed"] = sub["embed"]
     times["partition_cloud.partition"] = sub["partition"]
     with stage("spgt.spg", times, "partition_cloud.spg", device):
-        graph_sp = generate.superpoint_graph(emb, VKITTI_N_LABELS, device,
-                                             times)
+        # no voxels handed over (serving_structure replaced): in line
+        graph_sp = generate.superpoint_graph(
+            emb, VKITTI_N_LABELS, device, times,
+            delaunay=delaunay if voxels.done() else None)
     part = PartitionResult(
         xyz=structure["xyz"], rgb=structure["rgb"].astype(np.uint8),
         labels=structure["labels"],

@@ -4,8 +4,16 @@ Carried over unchanged in behaviour from superpoint_graph_tpu/graph/spg.py
 (`compute_sp_graph` and helpers; reference partition/graphs.py:75-210),
 whose module imports jax: host numpy plus scipy's Delaunay. The 'knn'
 adjacency without given edges searches with the port's kNN on `device`.
+A triangulation can also be made by another thread than the SPG's
+(`DelaunayJob`): `compute_sp_graph` then does what needs no edges first
+and waits for the tetrahedra where it needs them. Qhull releases the
+interpreter lock for the whole triangulation, so the two threads run
+side by side.
 """
 from __future__ import annotations
+
+import dataclasses
+from concurrent.futures import Future
 
 import numpy as np
 import torch
@@ -27,14 +35,49 @@ def _cross_edges(src, tgt, in_component) -> np.ndarray:
     return np.unique(edges, axis=1)
 
 
-def _delaunay_cross_edges(xyz, in_component, times=None) -> np.ndarray:
-    """All Delaunay tetrahedron edges crossing components (graphs.py:82-109),
-    both directions, unique columns [2, E] in (source, target) order, as
-    `_cross_edges` gives them; the triangulation's seconds go under
-    times["delaunay"] when given."""
+def _triangulate(xyz, times=None) -> np.ndarray:
+    """Delaunay(xyz)'s tetrahedra [T, 4], the stage `spgt.spg.delaunay`
+    (seconds under times["delaunay"]), counted as `delaunay.simplices`.
+    `Delaunay` is looked up in this module at call time."""
     with stage("spgt.spg.delaunay", times, "delaunay"):
         tets = Delaunay(xyz).simplices
     tracing.count("delaunay.simplices", len(tets))
+    return tets
+
+
+@dataclasses.dataclass
+class DelaunayJob:
+    """A triangulation handed from the thread that makes it to the one
+    that uses it: `run(xyz)` triangulates `xyz` (a float32 copy) in the
+    calling thread and hands (tetrahedra, seconds), or the error, to
+    `result()`, which waits for it."""
+    xyz: np.ndarray | None = None
+    future: Future = dataclasses.field(default_factory=Future)
+
+    def run(self, xyz):
+        self.xyz = np.array(xyz, np.float32)
+        own = {}
+        try:
+            tets = _triangulate(self.xyz, own)
+        except Exception as e:
+            self.future.set_exception(e)
+        else:
+            self.future.set_result((tets, own["delaunay"]))
+
+    def result(self):
+        return self.future.result()
+
+    def triangulates(self, xyz) -> bool:
+        """Whether, once run, this is the triangulation of `xyz`: the same
+        float32 values in the same order."""
+        return (self.xyz is not None and self.xyz.shape == xyz.shape
+                and np.array_equal(self.xyz, xyz))
+
+
+def _tet_cross_edges(tets, n, in_component) -> np.ndarray:
+    """The tetrahedra's edges crossing components (graphs.py:82-109),
+    both directions, unique columns [2, E] in (source, target) order, as
+    `_cross_edges` gives them; `n` vertices."""
     pairs = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
     src = np.concatenate([tets[:, a] for a, _ in pairs])
     tgt = np.concatenate([tets[:, b] for _, b in pairs])
@@ -42,10 +85,17 @@ def _delaunay_cross_edges(xyz, in_component, times=None) -> np.ndarray:
     # _cross_edges' columns, deduplicated as one int64 key (src, tgt) a
     # column: a tetrahedron edge recurs in ~6 tetrahedra, and np.unique's
     # axis=1 sort of millions of columns took seconds a street frame
-    n = np.int64(len(xyz))
+    n = np.int64(n)
     a, b = src[m].astype(np.int64), tgt[m].astype(np.int64)
     key = np.unique(np.concatenate([a * n + b, b * n + a]))
     return np.stack([key // n, key % n]).astype(tets.dtype)
+
+
+def _delaunay_cross_edges(xyz, in_component, times=None) -> np.ndarray:
+    """All Delaunay tetrahedron edges crossing components, as
+    `_tet_cross_edges` gives them; the triangulation's seconds go under
+    times["delaunay"] when given."""
+    return _tet_cross_edges(_triangulate(xyz, times), len(xyz), in_component)
 
 
 def _knn_cross_edges(xyz, in_component, device, k: int = 10):
@@ -99,27 +149,26 @@ def _component_stats(xyz, in_component, n_com):
     return cent.astype(np.float32), length, surface, volume
 
 
-def compute_sp_graph(xyz, d_max, in_component, labels, n_labels,
-                     adjacency="delaunay", knn_edges=None, device=None,
-                     times=None):
-    """The superpoint graph dict, with the reference's keys, shapes and
-    dtypes (graphs.py:75-210). `knn_edges=(source, target)` reuses existing
-    adjacency edges as superedge support; adjacency="knn" searches on
-    `device` (default: the card). With `times`, the Delaunay's seconds go
-    under times["delaunay"]. (The JAX version's `components` argument,
-    which it never reads, is dropped.)"""
-    device = card_unless(device)
-    xyz = np.asarray(xyz, np.float32)
-    in_component = np.asarray(in_component).astype(np.int64)
-    n_com = int(in_component.max()) + 1
-    has_labels = labels is not None and np.size(labels) > 1
-    label_hist = has_labels and np.ndim(labels) > 1 and np.shape(labels)[1] > 1
-
+def _support_edges(xyz, d_max, in_component, n_com, adjacency, knn_edges,
+                   device, times, delaunay):
+    """The superedges' support: cross edges shorter than `d_max` (all
+    with 0), sorted by (source component, target component); returns
+    (edges [2, E], their components [2, E], the first edge of each
+    superedge [E] bool, superedge ids [E], superedges)."""
     with tracing.span("spgt.spg.cross_edges"):
         if knn_edges is not None:
             edges = _cross_edges(np.asarray(knn_edges[0], np.int64),
                                  np.asarray(knn_edges[1], np.int64),
                                  in_component)
+        elif adjacency == "delaunay" and delaunay is not None:
+            with stage("spgt.spg.delaunay_wait", times, "delaunay_wait"):
+                tets, seconds = delaunay.result()
+            if delaunay.triangulates(xyz):
+                if times is not None:
+                    times["delaunay"] = times.get("delaunay", 0.0) + seconds
+                edges = _tet_cross_edges(tets, len(xyz), in_component)
+            else:  # another array's: triangulate this one here
+                edges = _delaunay_cross_edges(xyz, in_component, times)
         elif adjacency == "delaunay":
             edges = _delaunay_cross_edges(xyz, in_component, times)
         elif adjacency == "knn":
@@ -139,15 +188,22 @@ def compute_sp_graph(xyz, d_max, in_component, labels, n_labels,
         ecomp = ecomp[:, order]
         key = key[order]
         n_edg = edges.shape[1]
+        head = np.ones(n_edg, bool)
         if n_edg > 0:
-            head = np.ones(n_edg, bool)
             head[1:] = key[1:] != key[:-1]
             sedge_id = np.cumsum(head) - 1
             n_sedg = int(sedge_id[-1]) + 1
         else:
             sedge_id = np.zeros(0, np.int64)
             n_sedg = 0
+    return edges, ecomp, head, sedge_id, n_sedg
 
+
+def _component_graph(xyz, in_component, n_com, labels, n_labels):
+    """(the graph's `is_nn` and `sp_*` entries, centroids, lengths,
+    surfaces, volumes, point counts) of the components."""
+    has_labels = labels is not None and np.size(labels) > 1
+    label_hist = has_labels and np.ndim(labels) > 1 and np.shape(labels)[1] > 1
     with tracing.span("spgt.spg.components"):
         graph = {"is_nn": False}
         cent, length, surface, volume = _component_stats(xyz, in_component,
@@ -170,6 +226,35 @@ def compute_sp_graph(xyz, d_max, in_component, labels, n_labels,
             graph["sp_labels"] = hist.astype(np.uint32)
         else:
             graph["sp_labels"] = []
+    return graph, cent, length, surface, volume, counts
+
+
+def compute_sp_graph(xyz, d_max, in_component, labels, n_labels,
+                     adjacency="delaunay", knn_edges=None, device=None,
+                     times=None, delaunay: DelaunayJob | None = None):
+    """The superpoint graph dict, with the reference's keys, shapes and
+    dtypes (graphs.py:75-210). `knn_edges=(source, target)` reuses existing
+    adjacency edges as superedge support; adjacency="knn" searches on
+    `device` (default: the card). With `times`, the Delaunay's seconds go
+    under times["delaunay"]. `delaunay`, a DelaunayJob that another
+    thread runs on these voxels, stands in for the triangulation: the
+    component statistics, which run first, run beside it, then the stage
+    `spgt.spg.delaunay_wait` (times "delaunay_wait") waits for it; where
+    it triangulated another array, the Delaunay is computed here. (The
+    JAX version's `components` argument, which it never reads, is
+    dropped.)"""
+    device = card_unless(device)
+    xyz = np.asarray(xyz, np.float32)
+    in_component = np.asarray(in_component).astype(np.int64)
+    n_com = int(in_component.max()) + 1
+
+    # what needs no edges first: it runs while a started triangulation does
+    graph, cent, length, surface, volume, counts = _component_graph(
+        xyz, in_component, n_com, labels, n_labels)
+    edges, ecomp, head, sedge_id, n_sedg = _support_edges(
+        xyz, d_max, in_component, n_com, adjacency, knn_edges, device, times,
+        delaunay)
+    n_edg = edges.shape[1]
 
     with tracing.span("spgt.spg.superedges"):
         # superedge features via segment reductions over the support edges

@@ -11,7 +11,9 @@ evaluation of `cli/ssp_train.py` and the serving path `frame.label_frame`:
     its local clouds and the per-edge distances on `device`, then cut
     pursuit on [embeddings | spatial_emb * xyz] (ssp/losses.py);
   * `superpoint_graph`: the SPG of the learned components with Delaunay
-    superedge support, superedges no longer than D_SE_MAX.
+    superedge support, superedges no longer than D_SE_MAX; the serving
+    path hands it a triangulation started on the voxels before the
+    embedding.
 
 With `times`, the embedding and the partition are timed stages
 (`utils/tracing.stage`: `spgt.ssp.embed` with `spgt.ssp.local_clouds`
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from ..device import card_unless
-from ..graph.spg import compute_sp_graph
+from ..graph.spg import DelaunayJob, compute_sp_graph
 from ..utils import tracing
 from ..utils.tracing import stage
 from .embed import embed_rows
@@ -98,10 +100,13 @@ def partition_cloud(embedder, loss_cfg, loader_cfg, structure, device=None,
 
 
 def superpoint_graph(part: CloudPartition, n_classes: int, device=None,
-                     times: dict | None = None) -> dict:
+                     times: dict | None = None,
+                     delaunay: DelaunayJob | None = None) -> dict:
     """The SPG of a learned partition (graph/spg.py, Delaunay support, at
     most D_SE_MAX long), with the voxels' labels where the sample has
-    them; the Delaunay's seconds go under times["delaunay"]."""
+    them; the Delaunay's seconds go under times["delaunay"]. `delaunay`:
+    the triangulation of the sample's voxels, a `graph/spg.DelaunayJob`
+    that the calling thread of `frame.label_frame` runs."""
     return compute_sp_graph(part.sample["xyz"], D_SE_MAX, part.in_component,
                             part.sample["labels"], n_classes, device=device,
-                            times=times)
+                            times=times, delaunay=delaunay)

@@ -114,17 +114,22 @@ def build_supervision_structure(xyz, rgb, labels, objects,
 
 
 def serving_structure(xyz, rgb, labels, cfg: SspPreprocessConfig,
-                      n_labels: int, device=None) -> dict:
+                      n_labels: int, device=None, on_voxels=None) -> dict:
     """A cloud's structure for partitioning it, not for training: the
     voxels, the kNN graph, the local neighbourhoods, the elevation and the
     normalised xy of `build_supervision_structure`, without the
     ground-truth transitions and objects (zeros here: only the training
     loss reads them) or the geometric features. `labels` (raw ids) become
-    the voxels' histograms for the SPG."""
+    the voxels' histograms for the SPG. `on_voxels(xyz)`, where given, is
+    called with the voxels (float32, the structure's "xyz") before the
+    kNN search."""
     device = card_unless(device)
     if cfg.voxel_width > 0:
         xyz, rgb, labels, _ = prune(xyz, cfg.voxel_width, rgb, labels, None,
                                     n_labels, 0, device=device)
+    xyz = np.asarray(xyz, np.float32)
+    if on_voxels is not None:
+        on_voxels(xyz)
     s, _ = _structure(xyz, rgb, labels, cfg, device)
     n_ver, n_edg = len(s["xyz"]), len(s["graph_nn"]["source"])
     return dict(s, is_transition=np.zeros(n_edg, np.uint8),

@@ -8,7 +8,9 @@ device-to-host reads.
   `torch.profiler.record_function(name)`, so that a running profiler holds
   the step on its own clock, beside the kernels (`name_idle`). Parents come
   from a thread-local stack; `within(span)` carries a span into another
-  thread.
+  thread. Children that run side by side in two threads all count: the
+  parent's self time is its seconds less all its children's, and reads
+  below zero by the overlap.
 - `stage(name, times, key, device)`: a step that is always timed. Its
   seconds are added to `times[key]`, after a synchronisation with `device`
   when that is a CUDA device; on, it is also a span. `self_s`, once it has
@@ -289,7 +291,7 @@ def _is_kernel(evt) -> bool:
             and not evt.name.startswith("spgt."))
 
 
-def name_idle(events, root: str = "spgt.cloud") -> dict:
+def name_idle(events, root: str = "spgt.cloud", program=None) -> dict:
     """The card's idle time inside the profiled `root` span, named by the
     program: `events` a finished torch.profiler's `events()`. The idle
     stretches are those before the first kernel, between kernels and
@@ -298,7 +300,14 @@ def name_idle(events, root: str = "spgt.cloud") -> dict:
     the root. Returns {"idle_s", "named_s" (idle inside a span below the
     root), "by_span": {name: idle seconds}, "gaps": [[name, seconds]] each
     stretch named after the innermost span at its middle, longest
-    first}."""
+    first}.
+
+    The profiler holds the spans of the thread that started it only.
+    `program`, the same root as `collect()` gives it, names the idle time
+    by the tracer's records instead, those of every thread (a frame's
+    stages run on a worker), put on the profiler's clock by the root's
+    start; where spans of two threads cover an instant, the shorter
+    names it."""
     kernels, spans = [], []
     for evt in events:
         tr = evt.time_range
@@ -306,6 +315,11 @@ def name_idle(events, root: str = "spgt.cloud") -> dict:
             kernels.append((tr.start, tr.end))
         elif evt.name.startswith("spgt."):
             spans.append((tr.start, tr.end, evt.name))
+    starts = [s for s, _, name in spans if name == root]
+    if program is not None and starts:
+        off = min(starts) - program["start_ns"] * 1e-3
+        spans = [(r["start_ns"] * 1e-3 + off, r["end_ns"] * 1e-3 + off,
+                  r["name"]) for r in program["spans"]]
     roots = [s for s in spans if s[2] == root]
     if not roots:
         return {"idle_s": 0.0, "named_s": 0.0, "by_span": {}, "gaps": []}

@@ -53,6 +53,8 @@ def spg_model(weights):
 
 
 def label(path, emb_w, model_w):
+    """(the frame's labels, its one root span as `tracing.collect` gives
+    it)."""
     tracing.collect()
     tracing.enable()
     try:
@@ -61,7 +63,7 @@ def label(path, emb_w, model_w):
     finally:
         tracing.disable()
     (root,) = tracing.collect()
-    return out, tracing.summary(root)
+    return out, root
 
 
 @pytest.fixture(scope="module")
@@ -70,8 +72,9 @@ def served(tmp_path_factory):
     frames.write_vkitti_frame(path, np.random.RandomState(4), POINTS)
     emb_w = frames.draw_embedder(EMBEDDER, 11, "cpu")
     model_w = draw_weights(MODEL, 12, "cpu")
-    out, summary = label(path, emb_w, model_w)
-    return {"path": path, "out": out, "summary": summary, "emb_w": emb_w,
+    out, root = label(path, emb_w, model_w)
+    return {"path": path, "out": out, "root": root,
+            "summary": tracing.summary(root), "emb_w": emb_w,
             "model_w": model_w, "raw": ref_ssp.read_frame(str(path))}
 
 
@@ -198,8 +201,8 @@ def test_spans_counters_counts_and_times(served):
     out, s = served["out"], served["summary"]
     for name in ("spgt.cloud", "spgt.read", "spgt.features", "spgt.ssp.embed",
                  "spgt.ssp.local_clouds", "spgt.cp", "spgt.spg",
-                 "spgt.spg.delaunay", "spgt.batch", "spgt.model",
-                 "spgt.spread"):
+                 "spgt.spg.delaunay", "spgt.spg.delaunay_wait", "spgt.batch",
+                 "spgt.model", "spgt.spread"):
         assert name in s["spans"], name
     c = s["counters"]
     n = len(out.partition.xyz)
@@ -211,7 +214,7 @@ def test_spans_counters_counts_and_times(served):
     assert out.counts["voxels"] == n
     assert out.counts["superpoints"] == len(out.partition.components)
     for key in ("read_vkitti", "partition_cloud.features", "ssp_embed",
-                "partition_cloud.partition", "delaunay",
+                "partition_cloud.partition", "delaunay", "delaunay_wait",
                 "partition_cloud.spg", "superpoint_batch", "model",
                 "interpolate_labels"):
         assert isinstance(out.times[key], float), key
@@ -266,3 +269,220 @@ def test_serving_knn_in_fixed_tiles_equals_row_blocks(served, monkeypatch):
     for key in ("source", "target", "distances"):
         np.testing.assert_array_equal(got_g[key], want_g[key])
     assert torch.equal(got_l, want_l)
+
+
+def sp_graph_input(served):
+    """compute_sp_graph's arguments on the frame: the SPG's voxels, the
+    learned components and the voxels' label histograms."""
+    emb = served["out"].embedding
+    return (emb.sample["xyz"], 100.0, emb.in_component,
+            emb.sample["labels"], 13)
+
+
+def test_a_delaunay_job_gives_the_inline_graph(served):
+    """The SPG of a triangulation run by another thread (DelaunayJob)
+    equals, key for key and bit for bit, the one triangulated in line;
+    the job adds the wait to the times, and both give the triangulation's
+    own seconds under "delaunay"."""
+    import threading
+
+    from superpoint_graph_tpu_torch.graph import spg
+
+    args = sp_graph_input(served)
+    inline_t, job_t = {}, {}
+    want = spg.compute_sp_graph(*args, device="cpu", times=inline_t)
+    job = spg.DelaunayJob()
+    other = threading.Thread(target=job.run, args=(args[0],))
+    other.start()
+    got = spg.compute_sp_graph(*args, device="cpu", times=job_t,
+                               delaunay=job)
+    other.join(timeout=60)
+    assert not other.is_alive()
+    assert set(got) == set(want) and len(want["source"]) > 0
+    for key, value in want.items():
+        if isinstance(value, np.ndarray):
+            assert got[key].dtype == value.dtype, key
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+        else:
+            assert got[key] == value, key
+    assert set(inline_t) == {"delaunay"}
+    assert set(job_t) == {"delaunay", "delaunay_wait"}
+    assert all(v >= 0 for v in job_t.values())
+
+
+def test_a_delaunay_job_of_other_voxels_is_not_used(served):
+    """A job that triangulated another array (the voxels reversed) is
+    waited for and set aside, and the Delaunay computed in line: the
+    in-line graph."""
+    from superpoint_graph_tpu_torch.graph import spg
+
+    args = sp_graph_input(served)
+    want = spg.compute_sp_graph(*args, device="cpu")
+    job = spg.DelaunayJob()
+    job.run(args[0][::-1])
+    times = {}
+    got = spg.compute_sp_graph(*args, device="cpu", times=times,
+                               delaunay=job)
+    for key in ("source", "target", "se_delta_mean", "sp_centroids"):
+        np.testing.assert_array_equal(got[key], want[key])
+    assert set(times) == {"delaunay", "delaunay_wait"}
+
+
+def test_an_error_in_the_delaunay_job_surfaces(served, monkeypatch):
+    from superpoint_graph_tpu_torch.graph import spg
+
+    def fails(xyz):
+        raise RuntimeError("QH6154 qhull precision error")
+
+    monkeypatch.setattr(spg, "Delaunay", fails)
+    args = sp_graph_input(served)
+    job = spg.DelaunayJob()
+    job.run(args[0])
+    with pytest.raises(RuntimeError, match="QH6154"):
+        spg.compute_sp_graph(*args, device="cpu", delaunay=job)
+
+
+def test_label_frame_triangulates_once_in_the_calling_thread(
+        served, monkeypatch):
+    """The benchmark's traced run names idle time by replacing
+    `spg.Delaunay` with a wrapper: a frame still runs what the module
+    holds, once, in the calling thread, while its SPG runs on another."""
+    import threading
+
+    from scipy.spatial import Delaunay
+
+    from superpoint_graph_tpu_torch.graph import spg
+    from superpoint_graph_tpu_torch.ssp import generate
+
+    threads = {"Delaunay": [], "compute_sp_graph": []}
+
+    def counted(xyz):
+        threads["Delaunay"].append(threading.get_ident())
+        return Delaunay(xyz)
+
+    orig = generate.compute_sp_graph
+
+    def sp_graph(*a, **kw):
+        threads["compute_sp_graph"].append(threading.get_ident())
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(spg, "Delaunay", counted)
+    monkeypatch.setattr(generate, "compute_sp_graph", sp_graph)
+    out = frame.label_frame(str(served["path"]), embedder(served["emb_w"]),
+                            spg_model(served["model_w"]), "cpu")
+    me = threading.get_ident()
+    assert threads["Delaunay"] == [me]
+    assert len(threads["compute_sp_graph"]) == 1
+    assert threads["compute_sp_graph"][0] != me
+    np.testing.assert_array_equal(out.partition.graph_sp["source"],
+                                  served["out"].partition.graph_sp["source"])
+    assert "delaunay_wait" in out.times
+
+
+def test_an_error_in_the_frame_stages_surfaces(served, monkeypatch):
+    """A stage that fails on the worker thread, after or before the
+    voxels are handed over, fails the call; nothing waits forever."""
+    from superpoint_graph_tpu_torch.ssp import generate
+
+    def embed_fails(*a, **kw):
+        raise RuntimeError("the embedder failed")
+
+    def prune_fails(*a, **kw):
+        raise RuntimeError("the prune failed")
+
+    args = (str(served["path"]), embedder(served["emb_w"]),
+            spg_model(served["model_w"]), "cpu")
+    monkeypatch.setattr(generate, "embed_cloud", embed_fails)
+    with pytest.raises(RuntimeError, match="embedder failed"):
+        frame.label_frame(*args)
+    monkeypatch.setattr(frame, "serving_structure", prune_fails)
+    with pytest.raises(RuntimeError, match="prune failed"):
+        frame.label_frame(*args)
+
+
+def test_a_structure_that_hands_over_no_voxels_triangulates_in_line(
+        served, monkeypatch):
+    """A `serving_structure` that never calls `on_voxels` leaves the SPG
+    to triangulate in line, with the same superedges."""
+    orig = frame.serving_structure
+
+    def silent(*a, on_voxels=None, **kw):
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(frame, "serving_structure", silent)
+    out = frame.label_frame(str(served["path"]), embedder(served["emb_w"]),
+                            spg_model(served["model_w"]), "cpu")
+    assert "delaunay" in out.times and "delaunay_wait" not in out.times
+    np.testing.assert_array_equal(out.partition.graph_sp["source"],
+                                  served["out"].partition.graph_sp["source"])
+
+
+def test_the_frame_triangulation_traces_under_the_frame_root(served):
+    """One root, `spgt.cloud`, a frame. The calling thread's
+    `spgt.spg.delaunay` is its child, begun after the worker's
+    `spgt.features` began (the prune hands the voxels over) and before
+    its `spgt.spg`, and ended before the wait inside `spgt.spg` ended;
+    the simplices are counted on the root. The root's self time is its
+    seconds less all its children's, the overlapped triangulation among
+    them, so it can read below zero; the serve-trace tool prints such a
+    self time as "overlapped"."""
+    import importlib.util
+    from pathlib import Path
+
+    root, summary = served["root"], served["summary"]
+    assert root["name"] == "spgt.cloud" and root["parent"] is None
+    by_name = {}
+    for rec in root["spans"]:
+        by_name.setdefault(rec["name"], []).append(rec)
+    (tri,) = by_name["spgt.spg.delaunay"]
+    (wait,) = by_name["spgt.spg.delaunay_wait"]
+    (features,) = by_name["spgt.features"]
+    (spg_stage,) = by_name["spgt.spg"]
+    assert tri["parent"] == root["id"] == features["parent"]
+    assert features["start_ns"] <= tri["start_ns"] <= spg_stage["start_ns"]
+    assert (spg_stage["start_ns"] <= wait["start_ns"]
+            and wait["end_ns"] <= spg_stage["end_ns"])
+    assert tri["end_ns"] <= wait["end_ns"]
+    assert summary["counters"]["delaunay.simplices"] > 0
+    children = sum(r["end_ns"] - r["start_ns"] for r in root["spans"]
+                   if r["parent"] == root["id"])
+    assert root["self_ns"] == root["end_ns"] - root["start_ns"] - children
+
+    tool = Path(__file__).resolve().parents[1] / "tools/torch_serve_trace.py"
+    spec = importlib.util.spec_from_file_location("torch_serve_trace", tool)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    shown = mod.overlapped(summary["spans"])
+    for name, e in summary["spans"].items():
+        assert shown[name]["self_s"] == (
+            "overlapped" if e["self_s"] < 0 else e["self_s"]), name
+    assert mod.overlapped({"spgt.cloud": {"seconds": 1.0, "self_s": -0.5,
+                                          "count": 1}})[
+        "spgt.cloud"]["self_s"] == "overlapped"
+
+
+def test_idle_of_a_profiled_frame_is_named_by_the_worker_spans(served):
+    """Under torch.profiler, started by the calling thread, the frame's
+    idle time is named from the tracer's records of both threads: the
+    worker's stages (the embedder, the wait for the tetrahedra) as well
+    as the calling thread's triangulation."""
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    tracing.collect()
+    tracing.enable()
+    try:
+        with prof:
+            frame.label_frame(str(served["path"]), embedder(served["emb_w"]),
+                              spg_model(served["model_w"]), "cpu")
+    finally:
+        tracing.disable()
+    (root,) = tracing.collect()
+    named = tracing.name_idle(prof.events(), program=root)
+    # no kernels on the CPU: the whole frame is idle
+    assert named["idle_s"] == pytest.approx(
+        (root["end_ns"] - root["start_ns"]) * 1e-9, rel=1e-3)
+    assert sum(named["by_span"].values()) == pytest.approx(named["idle_s"])
+    for worker in ("spgt.features", "spgt.ssp.embed", "spgt.spg.components"):
+        assert any(k.startswith(worker) for k in named["by_span"]), worker
+    assert {"spgt.spg.delaunay", "spgt.spg.delaunay_wait"} & set(
+        named["by_span"])

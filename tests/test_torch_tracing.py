@@ -412,3 +412,42 @@ def test_name_idle_names_gaps_by_the_innermost_program_span():
                                            "spgt.read.parse"]
     assert tracing.name_idle(events[1:]) == {
         "idle_s": 0.0, "named_s": 0.0, "by_span": {}, "gaps": []}
+
+
+def test_name_idle_names_by_every_threads_program_spans():
+    """The profiler holds the calling thread's spans only; with `program`
+    (the root from `collect()`) the tracer's records of every thread name
+    the idle time, moved onto the profiler's clock by the root's start,
+    the shorter span where two threads' spans overlap."""
+    events = [
+        _evt("spgt.cloud", 1000.0, 1100.0),
+        _evt("spgt.spg.delaunay", 1010.0, 1090.0),
+        _evt("kernel_a", 1020.0, 1030.0, device=True),
+        _evt("kernel_b", 1060.0, 1070.0, device=True),
+    ]
+    alone = tracing.name_idle(events)
+    assert alone["by_span"] == pytest.approx({
+        "spgt.spg.delaunay": 60e-6, "not named": 20e-6})
+
+    def rec(name, start_us, end_us):
+        return {"name": name, "start_ns": int(start_us * 1000),
+                "end_ns": int(end_us * 1000)}
+
+    # the tracer's clock runs 4,000 us ahead; embed and the wait ran on a
+    # worker thread, the triangulation on the calling one
+    program = dict(rec("spgt.cloud", 5000, 5100), spans=[
+        rec("spgt.cloud", 5000, 5100),
+        rec("spgt.spg.delaunay", 5010, 5090),
+        rec("spgt.ssp.embed", 5005, 5040),
+        rec("spgt.spg.delaunay_wait", 5045, 5095)])
+    got = tracing.name_idle(events, program=program)
+    assert got["idle_s"] == pytest.approx(80e-6)
+    assert got["named_s"] == pytest.approx(70e-6)
+    assert got["by_span"] == pytest.approx({
+        "spgt.spg.delaunay_wait": 40e-6, "spgt.ssp.embed": 25e-6,
+        "not named": 10e-6, "spgt.spg.delaunay": 5e-6})
+    assert got["gaps"] == [["spgt.spg.delaunay_wait", pytest.approx(30e-6)],
+                           ["spgt.spg.delaunay_wait", pytest.approx(30e-6)],
+                           ["spgt.ssp.embed", pytest.approx(20e-6)]]
+    # a profile without the root names nothing, program or not
+    assert tracing.name_idle(events[1:], program=program)["idle_s"] == 0.0

@@ -17,13 +17,19 @@ warm-up from --seed), then:
   spread labels the reader's chunks), spread_reused_rows
   (`spread.reused_rows`, where the cloud has it); on a frame
   (`frame.label_frame`) embed_s (`spgt.ssp.embed`), delaunay_s
-  (`spgt.spg.delaunay`) and the counters ssp_vertices, ssp_local_points,
-  ssp_edges and delaunay_simplices; and every span's total and self
-  seconds and count;
+  (`spgt.spg.delaunay`), delaunay_wait_s (`spgt.spg.delaunay_wait`) and
+  the counters ssp_vertices, ssp_local_points, ssp_edges and
+  delaunay_simplices; and every span's total and self seconds and count,
+  a self time below zero given as "overlapped" (a frame's root: its
+  triangulation runs in the calling thread beside the stages a worker
+  thread runs, and the tracer takes every child's seconds from the
+  parent's);
 - one more cloud traced under torch.profiler with the benchmark's own spans
-  too: its idle time by the innermost `spgt.` span (`tracing.name_idle`),
-  its gaps named by the program (the span at each gap's middle) beside the
-  benchmark's naming (`portbench/harness/trace.summarize`), idle_named_pct
+  too: its idle time by the innermost `spgt.` span of any thread
+  (`tracing.name_idle` on the tracer's records), its gaps named by the
+  program (the span at each gap's middle) beside the benchmark's naming
+  (`portbench/harness/trace.summarize`, which sees the spans of the
+  profiling thread only: on a frame, not the worker's), idle_named_pct
   (the share of the idle time inside a span below `spgt.cloud`), the idle
   share of the cloud's own span, and its reads of the device by site.
 
@@ -58,6 +64,14 @@ def program_record(root: dict) -> dict:
     return tracing.summary(root)
 
 
+def overlapped(spans: dict) -> dict:
+    """`spans` ({name: {"seconds", "self_s", "count"}}) with each self
+    time below zero given as "overlapped": a child ran in another thread
+    beside the span's other children."""
+    return {name: dict(e, self_s="overlapped") if e["self_s"] < 0 else e
+            for name, e in spans.items()}
+
+
 def readings(program: dict) -> dict:
     """One traced cloud's readings of the tracer (see the docstring)."""
     spans, c = program["spans"], program["counters"]
@@ -78,6 +92,7 @@ def readings(program: dict) -> dict:
     if "spgt.ssp.embed" in spans:
         out["embed_s"] = sec("spgt.ssp.embed")
         out["delaunay_s"] = sec("spgt.spg.delaunay")
+        out["delaunay_wait_s"] = sec("spgt.spg.delaunay_wait")
         for k in ("ssp.vertices", "ssp.local_points", "ssp.edges",
                   "delaunay.simplices"):
             out[k.replace(".", "_")] = c.get(k, 0)
@@ -218,7 +233,7 @@ def main(argv=None) -> int:
 
     events = prof.events()
     bench_view = trace.summarize(prof, names, wall)
-    named = tracing.name_idle(events)
+    named = tracing.name_idle(events, program=profiled)
     med = {k: statistics.median(v) for k, v in walls.items()}
     unit = unit_costs(dev)
     n_spans = statistics.median(
@@ -242,19 +257,21 @@ def main(argv=None) -> int:
     for c in clouds:
         for name, e in c["spans"].items():
             spans.setdefault(name, []).append(e)
-    out["spans_median"] = {
+    out["spans_median"] = overlapped({
         name: {k: statistics.median(e[k] for e in es)
                for k in ("seconds", "self_s", "count")}
-        for name, es in sorted(spans.items())}
+        for name, es in sorted(spans.items())})
     out["counters_median"] = median_of([c["counters"] for c in clouds])
     out["d2h_sites_first_cloud"] = d2h_sites(roots[0])
+    program = program_record(profiled)
+    program["spans"] = overlapped(program["spans"])
     out["profiled"] = {
         "wall_s": wall, "busy_s": bench_view["busy_s"],
         "idle_pct": 100.0 * (1.0 - bench_view["busy_s"] / wall),
         "cloud_s": cloud_s, "cloud_idle_pct": 100.0 * named["idle_s"]
         / cloud_s,
         "solver_host_syncs": host_syncs,
-        "program": program_record(profiled),
+        "program": program,
         "idle_s": named["idle_s"], "named_s": named["named_s"],
         "idle_by_span": dict(list(named["by_span"].items())[:25]),
         "gaps_by_program": named["gaps"][:25],
